@@ -40,3 +40,9 @@ def random_linear_image(rng, h=64, w=96):
     img[:4, :4] = 0.0
     img[-4:, -4:] = 1.0
     return img.astype(np.float32)
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA device (the port's hand-written "
+        "kernels); skipped where there is none")
