@@ -6,8 +6,10 @@ Run from the root of a checkout, on a machine with an NVIDIA card:
     python3 chip_smoke.py
 
 Phases (any failure raises, and the script exits non-zero):
- 1. the card's name and power limit; build of the develop kernel (nvcc,
-    sm_90a) with its build seconds and ptxas register/spill report;
+ 1. the card's name and power limit; the builds, started together, of the
+    develop kernel and the RAW kernel (nvcc, sm_90a) and of the native
+    host library (g++), with build seconds and the ptxas register/spill
+    report;
  2. the kernel held against its plain torch twin at 48x160, 37x150 and
     4096x6016 for every variant, the shortcut variants' bit-identity and
     identity_oklch's 3e-3 bound;
@@ -18,7 +20,25 @@ Phases (any failure raises, and the script exits non-zero):
     and `cli develop` on a 24 MP 16-bit PPM; the launch count of the
     kernel over that run;
  4. CUDA-event timings per 24 MP variant beside the byte and operation
-    bounds, the twin's time, and the editor's render latency per level.
+    bounds, the twin's time, and the editor's render latency per level;
+ 5. the one-pass RAW kernel held against its plain torch twin, bit for
+    bit: the four Bayer patterns at 64x512, 50x300 and 37x150 and X-Trans
+    at 96x768 and 100x700, each with M=1 / M=3 (u8 masks), sharpen 0 /
+    0.8, the default-curve shortcuts (bit-identical to the general kernel)
+    and identity_oklch (3e-3 bound), plus one full-size frame of each CFA;
+ 6. the RAW main path: a 24 MP RGGB lossless-JPEG DNG and a 26 MP X-Trans
+    DNG (orientation 6) written with the port's write_dng, developed by
+    `cli batch` on the card (exactly one RAW-kernel launch per image, no
+    twin call); each pre-JPEG render held against the composed path on the
+    card (demosaic -> unsharp -> develop kernel) on the trimmed interior;
+    each JPEG byte for byte the encode of that render oriented on the
+    card, whose YCbCr 4:2:0 u8 planes match the host's numpy rotation and
+    YCbCr within one level;
+ 7. CUDA-event timings of the RAW kernel (Bayer 24 MP and 45.4 MP,
+    X-Trans 26 MP; batch flags and full curves) beside its bounds and the
+    twin's time; the batch's MPix/s end to end, its per-image stage times
+    (each stage's function wrapped here between two synchronizes) and the
+    card's idle share under the profiler.
 
 The line before the last is the kernel table as JSON; the last line is
 {"ok": true, "device": {...}}. Without a card, or without the rest of the
@@ -27,12 +47,16 @@ repository beside this file, it exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
@@ -48,6 +72,21 @@ TIGHT, LOOSE, FRAC = 1e-4, 5e-3, 2e-3  # tests/test_develop.py:14
 # A 24 MP photo and the bucket-padded grid the editor renders it on.
 PHOTO_HW = (4000, 6000)
 BUCKET_HW = (4096, 6016)
+# RAW frames: a 24 MP Bayer sensor, a 26 MP X-Trans sensor, and the
+# 45.4 MP north-star size (BASELINE.md).
+BAYER_HW = (4000, 6000)
+XTRANS_HW = (4160, 6240)
+NORTH_STAR_HW = (5504, 8256)
+# The RAW batch's edit: sliders and sharpening, default curves (the
+# kernel's identity_oklch variant), as `cli batch` flags.
+RAW_FLAGS = ["--exposure", "0.5", "--contrast", "20", "--shadow", "15",
+             "--highlight", "-10", "--wb-temperature", "10", "--vignette", "30",
+             "--sharpness", "30"]
+# YCbCr 4:2:0 u8 on the card vs numpy on the host: the sums and the 2x2
+# chroma mean round in another order, so a sample may land one level off.
+YCC_MAX = 1
+XYZ_TO_CAM = np.array([[0.8, -0.1, -0.05], [-0.3, 1.1, 0.15],
+                       [-0.05, 0.15, 0.65]])
 
 
 class SmokeFailure(RuntimeError):
@@ -481,6 +520,406 @@ def phase_timing(dev, ed, card, log):
     return results
 
 
+# -- the RAW kernel -------------------------------------------------------------
+
+def raw_edits():
+    """(sliders-only edit, full-curve edit, M=3 stack) for the RAW kernel."""
+    from rawphotoforge_tpu_torch.core.params import EditParameters
+
+    tone = EditParameters()
+    tone.set_tone(exposure=0.5, contrast=20, shadow=15, highlight=-10)
+    tone.set_whitebalance(temperature=10)
+    tone.set_vignette(30)
+    full = EditParameters()
+    bench_edit(full)
+    return tone, full, [full, *regional_edits()[:2]]
+
+
+def raw_cam():
+    from rawphotoforge_tpu_torch.ops.demosaic import cam_matrix_to_srgb
+
+    return cam_matrix_to_srgb(XYZ_TO_CAM)
+
+
+def phase_raw_kernel_vs_twin(dev, log):
+    import torch
+
+    from rawphotoforge_tpu_torch.core.params import pack_params
+    from rawphotoforge_tpu_torch.kernels import raw_pipeline as rp
+
+    rng = np.random.default_rng(SEED + 3)
+    tone, full, stack = raw_edits()
+    cam = raw_cam()
+    wb = (1.9, 1.0, 1.5)
+    shapes = [(p, hw) for p in ("RGGB", "BGGR", "GRBG", "GBRG")
+              for hw in ((64, 512), (50, 300), (37, 150))]
+    shapes += [("XTRANS", (96, 768)), ("XTRANS", (100, 700)),
+               ("RGGB", BAYER_HW), ("XTRANS", XTRANS_HW)]
+    worst = 0.0
+    for pattern, (h, w) in shapes:
+        mosaic = torch.from_numpy(rng.random((h, w), dtype=np.float32)).to(dev)
+        masks = np.zeros((3, h, w), np.uint8)
+        masks[0] = 1
+        for k, logit in enumerate(region_logits(h, w)[:2], start=1):
+            masks[k] = logit >= 0.0
+        masks = torch.from_numpy(masks).to(dev)
+        p_full = pack_params([full], extent=(h, w), device=dev)
+        p_tone = pack_params([tone], extent=(h, w), device=dev)
+        p_m3 = pack_params(stack, extent=(h, w), device=dev)
+        shortcut = dict(default_bright_curves=True, default_oklch_curves=True)
+        cases = [
+            ("M1_sharpen0", p_full, None, 0.0, {}),
+            ("M3_u8_sharpen0.8", p_m3, masks, 0.8, {}),
+            ("shortcuts", p_tone, None, 0.8, shortcut),
+            ("identity_oklch", p_tone, None, 0.8,
+             dict(shortcut, identity_oklch=True)),
+        ]
+        notes = []
+        for name, params, mk, amt, flags in cases:
+            args = (mosaic, wb, cam, params, np.float32(amt))
+            out = rp.raw_develop_fused(*args, pattern=pattern, masks=mk, **flags)
+            torch.cuda.synchronize()
+            ref = rp.raw_develop_fused_ref(*args, pattern=pattern, masks=mk,
+                                           **flags)
+            err = float((out - ref).abs().max().item())
+            worst = max(worst, err)
+            bit_identical(out, ref, f"RAW {pattern} {h}x{w} {name} kernel vs twin")
+            if name == "shortcuts":
+                general = rp.raw_develop_fused(*args, pattern=pattern)
+                bit_identical(out, general, f"RAW {pattern} {h}x{w} shortcuts "
+                              "vs general kernel")
+            if name == "identity_oklch":
+                general = rp.raw_develop_fused(*args, pattern=pattern, **shortcut)
+                dev_max = float((out - general).abs().max().item())
+                check(dev_max < 3e-3, f"RAW identity_oklch {pattern} {h}x{w}: "
+                      f"{dev_max:.3e} from the full path (bound 3e-3)")
+                notes.append(f"identity_oklch {dev_max:.3e} from the full path")
+        log(f"phase 5: RAW {pattern} {h}x{w}: kernel == twin bit for bit in "
+            f"{len(cases)} cases (M=1/M=3 u8, sharpen 0/0.8, shortcuts "
+            f"bit-identical to the general kernel; {'; '.join(notes)})")
+        del mosaic, masks
+        torch.cuda.empty_cache()
+    return worst
+
+
+def write_raw_dir(tmp, log):
+    """The main path's input: a 24 MP RGGB lossless-JPEG DNG and a 26 MP
+    X-Trans DNG (uncompressed, EXIF orientation 6: a portrait shot),
+    written with the port's write_dng from seeded smooth-plus-texture
+    scenes."""
+    import dataclasses
+
+    from rawphotoforge_tpu_torch.io import dng, raw as rawio
+
+    rng = np.random.default_rng(SEED + 4)
+    files = {}
+    for name, pattern, (h, w), orientation, kw in (
+            ("bayer24.dng", "RGGB", BAYER_HW, 1, dict(compression=7)),
+            ("xtrans26.dng", "XTRANS", XTRANS_HW, 6, dict(compression=1))):
+        yy = np.linspace(0.0, 1.0, h, dtype=np.float32)[:, None]
+        xx = np.linspace(0.0, 1.0, w, dtype=np.float32)[None, :]
+        scene = np.stack([0.15 + 0.6 * yy * np.ones_like(xx),
+                          0.1 + 0.5 * xx * np.ones_like(yy),
+                          0.3 + 0.3 * np.sin(6.0 * (xx + yy))])
+        scene += 0.15 * rng.random((3, h, w), dtype=np.float32)
+        raw = rawio.synthetic_raw(scene, pattern, xyz_to_cam=XYZ_TO_CAM)
+        raw = dataclasses.replace(raw, orientation=orientation, exif={
+            "Make": "Synthetic", "Model": "chip-smoke"})
+        t0 = time.perf_counter()
+        data = dng.write_dng(raw, **kw)
+        path = os.path.join(tmp, name)
+        with open(path, "wb") as f:
+            f.write(data)
+        files[name] = (path, (h, w), orientation)
+        log(f"phase 6: wrote {name}: {pattern} {w}x{h} orientation "
+            f"{orientation}, {len(data)} bytes "
+            f"({'lossless JPEG' if kw['compression'] == 7 else 'uncompressed'}) "
+            f"in {time.perf_counter() - t0:.2f} s")
+    return files
+
+
+def run_batch(in_dir, out_dir, dev):
+    """`cli batch` on the card; returns (rc, its stdout), echoed."""
+    from rawphotoforge_tpu_torch.app import cli
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(["batch", in_dir, out_dir, *RAW_FLAGS, "--device", str(dev)])
+    sys.stdout.write(buf.getvalue())
+    return rc, buf.getvalue()
+
+
+def phase_raw_main_path(dev, log):
+    import dataclasses
+
+    import torch
+    from PIL import Image
+
+    from rawphotoforge_tpu_torch.app import cli
+    from rawphotoforge_tpu_torch.core.params import pack_params
+    from rawphotoforge_tpu_torch.io import image_io, jpegenc, raw as rawio
+    from rawphotoforge_tpu_torch.kernels import fused, raw_pipeline as rp
+    from rawphotoforge_tpu_torch.ops import demosaic as dm
+    from rawphotoforge_tpu_torch.ops.geometry import orient_exif
+    from rawphotoforge_tpu_torch.ops.sharpen import unsharp_mask
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_raw_")
+    in_dir, out_dir = os.path.join(tmp, "in"), os.path.join(tmp, "out")
+    os.makedirs(in_dir)
+    files = write_raw_dir(in_dir, log)
+
+    twin_calls = [0]
+    real_twin = rp.raw_develop_fused_ref
+
+    def counted_twin(*a, **k):
+        twin_calls[0] += 1
+        return real_twin(*a, **k)
+
+    rp.raw_develop_fused_ref = counted_twin
+    rp.LAUNCHES = 0  # the RAW main path's run starts here
+    fused.LAUNCHES = 0
+    t0 = time.perf_counter()
+    try:
+        rc, out = run_batch(in_dir, out_dir, dev)
+        torch.cuda.synchronize()
+    finally:
+        rp.raw_develop_fused_ref = real_twin
+    launches = rp.LAUNCHES  # the RAW main path's run ends here
+    t_main = time.perf_counter() - t0
+    check(rc == 0, f"cli batch exited {rc}")
+    check(launches == len(files), f"RAW kernel launched {launches} times for "
+          f"{len(files)} images (want one each)")
+    check(twin_calls[0] == 0, f"the RAW twin ran {twin_calls[0]} times on the "
+          "main path")
+    log(f"phase 6: RAW main path (cli batch of {len(files)} DNGs on the card) in "
+        f"{t_main:.2f} s; RAW kernel launches {launches}, twin calls "
+        f"{twin_calls[0]}, develop kernel launches {fused.LAUNCHES}")
+
+    flags = _parse_flags(RAW_FLAGS)
+    edit = cli._params_from_args(flags)
+    for name, (path, (h, w), orientation) in files.items():
+        jpg = os.path.join(out_dir, os.path.splitext(name)[0] + ".jpg")
+        with Image.open(jpg) as im:
+            got = np.asarray(im.convert("RGB")).astype(np.int32)
+        upright_hw = (w, h) if orientation == 6 else (h, w)
+        check(got.shape == (*upright_hw, 3), f"{jpg} decodes to {got.shape}")
+        # The one-pass render before orientation, against the composed path
+        # on the card.
+        with open(path, "rb") as f:
+            raw = rawio.parse_raw(f.read())
+        render = cli.raw_fast_render(
+            dataclasses.replace(raw, orientation=1), edit, dev)
+        mos01 = rawio.normalized_mosaic(raw, raw.mosaic, dev)
+        xt = raw.pattern == "XTRANS"
+        planes = dm.develop_raw(mos01, raw.wb_gains, rawio.cam2srgb_for(raw),
+                                pattern=raw.pattern,
+                                method="residual" if xt else "malvar")
+        planes = unsharp_mask(planes, edit.sharpness / 100.0 * 2.0)
+        composed = fused.develop_post_geo_fused(
+            planes, pack_params([edit], extent=(h, w), build_luts=False,
+                                device=dev),
+            None, main_mask_all_ones=True, default_bright_curves=True,
+            default_oklch_curves=True, identity_oklch=True)
+        trim = 14 if xt else 4
+        err = compare(render[:, trim:-trim, trim:-trim],
+                      composed[:, trim:-trim, trim:-trim], loose=1e-2,
+                      what=f"{name} one-pass vs composed")
+        check(bool(torch.isfinite(render).all()), f"{name} render not finite")
+        del mos01, planes, composed
+        # What the batch did after the kernel: the file holds exactly the
+        # JPEG of this render oriented on the card, and the card's YCbCr
+        # 4:2:0 u8 planes of it match the plain host version (numpy
+        # rotation, jpegenc's numpy YCbCr) within one level.
+        oriented = orient_exif(render, raw.orientation)
+        with open(jpg, "rb") as f:
+            check(f.read() == jpegenc.encode_jpeg(
+                oriented, quality=flags.quality,
+                exif_bytes=image_io.build_exif_bytes(raw.exif)),
+                f"{name}: the batch JPEG is not the encode of the render")
+        hwc = render.cpu().numpy().transpose(1, 2, 0)
+        if orientation == 6:
+            hwc = np.rot90(hwc, -1)
+        plain = jpegenc._to_ycc420_np(np.ascontiguousarray(hwc.transpose(2, 0, 1)))
+        ycc_max, ycc_off = 0, 0
+        for ours, ref in zip(jpegenc.to_ycc420_u8(oriented), plain):
+            check(ours.shape == ref.shape, f"{name}: YCbCr {ours.shape} vs "
+                  f"{ref.shape}")
+            d = np.abs(ours.astype(np.int16) - ref.astype(np.int16))
+            ycc_max = max(ycc_max, int(d.max()))
+            ycc_off += int((d > 0).sum())
+        check(ycc_max <= YCC_MAX, f"{name}: card YCbCr vs host YCbCr: max "
+              f"{ycc_max} u8 (allowed {YCC_MAX})")
+        log(f"phase 6: {name}: JPEG {upright_hw[1]}x{upright_hw[0]} decodes "
+            f"(orientation {orientation}); one-pass render vs composed path "
+            f"(demosaic -> unsharp -> develop kernel) on the {trim}-px-trimmed "
+            f"interior: max abs err {err:.3e} (assert_close, loose 1e-2); the "
+            f"JPEG is byte for byte the encode of the card-oriented render; "
+            f"card YCbCr 4:2:0 u8 vs the host's (numpy rotation + YCbCr): max "
+            f"{ycc_max} (limit {YCC_MAX}), {ycc_off} of "
+            f"{hwc.shape[0] * hwc.shape[1] * 3 // 2} samples differ")
+        del render
+        torch.cuda.empty_cache()
+    return launches, in_dir, tmp
+
+
+def raw_op_count(pattern, sharpen_on):
+    """f32 operations of the RAW kernel per output pixel before the edit
+    stack, counted as op_count counts them: WB 1; Malvar 50 (11 neighbour
+    sums, four 5-8-op filters, 7 selects, phase tests) or the X-Trans
+    residual demosaic 160 (gradients 4, two 7x7 separable energy sums 52,
+    two 1-D green NCs 32, 3 selects and d, two chroma NCs 62, phase tests
+    6); camera matrix + clip 21; unsharp 69 when the amount is not 0."""
+    demosaic = 160 if pattern == "XTRANS" else 50
+    return 1 + demosaic + 21 + (69 if sharpen_on else 0)
+
+
+def staged_batch(in_dir, out_dir, dev):
+    """`cli batch` once more with the function of each stage wrapped between
+    two synchronizes: (wall ms, {stage: ms}) summed over the images. The
+    stages: host parse (LJPEG decode included), upload + normalize, the RAW
+    kernel, YCbCr 4:2:0 + u8 fetch, JPEG encode."""
+    import torch
+
+    from rawphotoforge_tpu_torch import native
+    from rawphotoforge_tpu_torch.io import jpegenc, raw as rawio
+    from rawphotoforge_tpu_torch.kernels import raw_pipeline as rp
+
+    stage_ms = {}
+    real = []
+
+    def wrap(mod, attr, stage):
+        fn = getattr(mod, attr)
+
+        def timed(*a, **k):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                torch.cuda.synchronize()
+                stage_ms[stage] = stage_ms.get(stage, 0.0) + (
+                    time.perf_counter() - t) * 1e3
+
+        real.append((mod, attr, fn))
+        setattr(mod, attr, timed)
+
+    for mod, attr, stage in ((rawio, "parse_raw", "parse+LJPEG decode"),
+                             (rawio, "normalized_mosaic", "upload+normalize"),
+                             (rp, "raw_develop_fused", "RAW kernel"),
+                             (jpegenc, "to_ycc420_u8", "YCbCr+fetch"),
+                             (native, "jpeg_encode_ycc420", "JPEG encode")):
+        wrap(mod, attr, stage)
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rc, _ = run_batch(in_dir, out_dir, dev)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        for mod, attr, fn in real:
+            setattr(mod, attr, fn)
+    check(rc == 0, f"cli batch (staged) exited {rc}")
+    check(len(stage_ms) == len(real), f"stages seen: {sorted(stage_ms)}")
+    return wall_ms, stage_ms
+
+
+def phase_raw_timing(dev, card, in_dir, tmp, log):
+    import torch
+
+    from rawphotoforge_tpu_torch.core.params import (
+        default_curve_slots, pack_params)
+    from rawphotoforge_tpu_torch.kernels import fused, raw_pipeline as rp
+
+    rng = np.random.default_rng(SEED + 5)
+    tone, full, _ = raw_edits()
+    cam = raw_cam()
+    wb = (1.9, 1.0, 1.5)
+    amt = np.float32(30 / 100.0 * 2.0)
+    results = {}
+    for pattern, (h, w) in (("RGGB", BAYER_HW), ("RGGB", NORTH_STAR_HW),
+                            ("XTRANS", XTRANS_HW)):
+        hw = h * w
+        mosaic = torch.from_numpy(rng.random((h, w), dtype=np.float32)).to(dev)
+        for variant, edit, flags in (
+                ("batch_flags", tone, dict(default_bright_curves=True,
+                                           default_oklch_curves=True,
+                                           identity_oklch=True)),
+                ("full_curves", full, {})):
+            params = pack_params([edit], extent=(h, w), build_luts=False,
+                                 device=dev)
+            s = params.breaks.shape[-1]
+            args = (mosaic, wb, cam, params, amt)
+            ms = time_events(lambda: rp.raw_develop_fused(
+                *args, pattern=pattern, **flags), reps=20)
+            plain = time_events(lambda: rp.raw_develop_fused_ref(
+                *args, pattern=pattern, **flags), reps=2, warm=1)
+            slots = default_curve_slots([edit]) if not flags else (
+                (True, True, True, True),)
+            nbytes = 16 * hw + 4 * (21 + 11 + 20 * s)
+            ops = (raw_op_count(pattern, True) + op_count(
+                1, s, slots, flags.get("identity_oklch", False), [1.0], 1)) * hw
+            t_bytes = nbytes / PEAK_BYTES_S * 1e3
+            t_ops = ops / PEAK_F32_S * 1e3
+            bound = max(t_bytes, t_ops)
+            by = "bytes" if t_bytes >= t_ops else "operations"
+            key = f"{pattern}_{w}x{h}_{variant}"
+            results[key] = dict(ms=ms, plain_ms=plain, bound_ms=bound,
+                                bound_by=by)
+            log(f"phase 7: RAW kernel {pattern} {w}x{h} ({hw / 1e6:.1f} MP) "
+                f"{variant} S={s}: {ms:.4f} ms/frame ({hw / ms / 1e6:.1f} "
+                f"GPix/s); bound {bound:.4f} ms by {by} (bytes "
+                f"{nbytes / 1e6:.1f} MB -> {t_bytes:.4f} ms at 3.35 TB/s; ops "
+                f"{ops / 1e9:.2f} G -> {t_ops:.4f} ms at 67 TFLOP/s f32); "
+                f"{100 * bound / ms:.1f}% of roofline; plain twin {plain:.2f} ms "
+                f"(no yardstick); 1 launch/image; library_ms none [{card}]")
+        del mosaic
+        torch.cuda.empty_cache()
+
+    # The batch again, warm: MPix/s end to end, then once more with each
+    # stage timed.
+    rc, out = run_batch(in_dir, os.path.join(tmp, "out2"), dev)
+    check(rc == 0, f"cli batch (timed) exited {rc}")
+    rate_line = [ln for ln in out.splitlines() if "MPix/s end-to-end" in ln]
+    check(rate_line, "cli batch printed no throughput line")
+    log(f"phase 7: cli batch, warm, 2 DNGs (24 MP Bayer LJPEG + 26 MP X-Trans): "
+        f"{rate_line[0].strip()} [{card}]")
+    wall_ms, stage_ms = staged_batch(in_dir, os.path.join(tmp, "out_staged"), dev)
+    n = len(os.listdir(in_dir))
+    stage_ms["rest (file I/O, crop/orientation, EXIF)"] = wall_ms - sum(
+        stage_ms.values())
+    log(f"phase 7: cli batch with each stage between synchronizes, ms/image: "
+        + ", ".join(f"{k} {v / n:.2f}" for k, v in stage_ms.items())
+        + f"; wall {wall_ms / n:.2f} ms/image [{card}]")
+
+    # The card's busy share of one more warm batch, from a profiler trace
+    # (device events: kernels and copies, one stream, so their sum is
+    # their union).
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        rc, _ = run_batch(in_dir, os.path.join(tmp, "out3"), dev)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    check(rc == 0, f"cli batch (traced) exited {rc}")
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+    busy_ms = sum(by_name.values())
+    if busy_ms == 0.0:
+        log("phase 7: the profiler saw no device events: the batch's device "
+            "busy share is not measured")
+    else:
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+        log(f"phase 7: cli batch under the profiler: {wall_ms:.1f} ms wall, "
+            f"device busy {busy_ms:.2f} ms ({100 * busy_ms / wall_ms:.2f} %, idle "
+            f"{100 - 100 * busy_ms / wall_ms:.2f} %); top device events: "
+            + "; ".join(f"{n[:60]} {t:.2f} ms" for n, t in top) + f" [{card}]")
+    return results
+
+
 def main() -> int:
     try:
         import torch
@@ -508,19 +947,35 @@ def main() -> int:
     kind = torch.cuda.get_device_name(0)
     log(f"phase 1: torch {torch.__version__} CUDA {torch.version.cuda}; "
         f"device {kind} [{card}]")
-    fused.library()
-    build = fused.BUILD
-    log(f"phase 1: built {os.path.relpath(build['path'], ROOT)} in "
-        f"{build['seconds']:.2f} s")
-    for line in build["log"].splitlines():
-        if "registers" in line or "spill" in line or "error" in line.lower():
-            log(f"phase 1: ptxas: {line.strip()}")
+    from rawphotoforge_tpu_torch import native
+    from rawphotoforge_tpu_torch.kernels import raw_pipeline
+
+    # One build per source, all started together.
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(3) as pool:
+        for fut in [pool.submit(m.library) for m in (fused, raw_pipeline, native)]:
+            fut.result()
+    log(f"phase 1: builds done in {time.perf_counter() - t0:.2f} s")
+    for mod in (fused, raw_pipeline, native):
+        build = mod.BUILD
+        log(f"phase 1: built {os.path.relpath(build['path'], ROOT)} in "
+            f"{build['seconds']:.2f} s")
+        for line in build["log"].splitlines():
+            if "registers" in line or "spill" in line or "error" in line.lower():
+                log(f"phase 1: ptxas: {line.strip()}")
 
     worst = phase_kernel_vs_twin(dev, log)
     ed, launches, _ = phase_main_path(dev, log)
     timing = phase_timing(dev, ed, card, log)
+    del ed
+    torch.cuda.empty_cache()
+    raw_worst = phase_raw_kernel_vs_twin(dev, log)
+    raw_launches, raw_dir, raw_tmp = phase_raw_main_path(dev, log)
+    raw_timing = phase_raw_timing(dev, card, raw_dir, raw_tmp, log)
+    shutil.rmtree(raw_tmp, ignore_errors=True)
 
     main_case = timing["m4_regional"]
+    raw_case = raw_timing[f"RGGB_{BAYER_HW[1]}x{BAYER_HW[0]}_batch_flags"]
     table = {"kernels": [{
         "name": "develop_post_geo_fused",
         "route": "cuda",
@@ -532,6 +987,18 @@ def main() -> int:
         "plain_ms": main_case["plain_ms"],
         "bound_ms": main_case["bound_ms"],
         "bound_by": main_case["bound_by"],
+        "library_ms": None,
+    }, {
+        "name": "raw_develop_fused",
+        "route": "cuda",
+        "source": "rawphotoforge_tpu_torch/csrc/raw_develop.cu",
+        "replaces": "rawphotoforge_tpu/kernels/raw_pipeline.py:485",
+        "launches": raw_launches,
+        "max_abs_err": raw_worst,
+        "ms": raw_case["ms"],
+        "plain_ms": raw_case["plain_ms"],
+        "bound_ms": raw_case["bound_ms"],
+        "bound_by": raw_case["bound_by"],
         "library_ms": None,
     }]}
     log(f"total {time.perf_counter() - t_start:.1f} s")

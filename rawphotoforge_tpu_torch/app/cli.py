@@ -1,9 +1,15 @@
-"""Command-line develop tool of the port (the JAX package's ``app/cli.py``
-``develop`` subcommand, with the same edit flags).
+"""Command-line tool of the port (the JAX package's ``app/cli.py``
+``develop`` and ``batch`` subcommands, with the same edit flags).
 
 Usage:
   python -m rawphotoforge_tpu_torch.app.cli develop IN OUT [edit flags]
       [--device cuda|cpu]
+  python -m rawphotoforge_tpu_torch.app.cli batch IN_DIR OUT_DIR
+      [edit flags] [--device cuda|cpu]
+
+``batch`` of a directory of RAW files develops each one through the
+one-pass RAW kernel (``kernels/raw_pipeline``) and writes JPEGs through
+the dense wire (``io/jpegenc``); other inputs go through the editor.
 
 Edit flags mirror the UI sliders: exposure EV in [-6, 6]; all other
 sliders integer [-100, 100]; curves as comma-separated control points
@@ -13,15 +19,17 @@ sliders integer [-100, 100]; curves as comma-separated control points
 from __future__ import annotations
 
 import argparse
+import glob
 import os
 import sys
 import time
 
 import numpy as np
 
-from .._device import synchronize
-from .._errbase import PhotoEditorError
-from ..core.params import BRIGHTNESS, HUE, SATURATION, LIGHTNESS
+from .._device import resolve_device, synchronize
+from .._errbase import NotPortedError, PhotoEditorError
+from ..core.params import (BRIGHTNESS, HUE, SATURATION, LIGHTNESS,
+                           EditParameters, pack_params)
 from ..engine.editor import FULL, PhotoEditor
 from ..io import image_io
 
@@ -114,8 +122,6 @@ def cmd_develop(args) -> int:
         raise PhotoEditorError(
             "--lens-correct is not ported yet (ROADMAP.md, still to port: "
             "ops/lenscorr and io/lensdb)")
-    if os.path.splitext(args.input)[1].lower() in image_io.RAW_EXTENSIONS:
-        raise PhotoEditorError(image_io.NOT_PORTED_RAW)
     if args.output.lower().endswith(".dng"):
         raise PhotoEditorError(
             "the .dng HDR export is not ported yet (ROADMAP.md, still to "
@@ -158,6 +164,195 @@ def cmd_develop(args) -> int:
     return 0
 
 
+def _params_from_args(args) -> EditParameters:
+    p = EditParameters()
+    _set_edit_flags(p, args)
+    return p
+
+
+def _batch_out_name(path, output_dir, taken) -> str:
+    """Collision-safe output path: RAW+JPEG shooting pairs (IMG_0001.CR2
+    + IMG_0001.JPG) must not overwrite each other's develop."""
+    stem = os.path.splitext(os.path.basename(path))[0]
+    name = stem + ".jpg"
+    if name in taken:
+        ext = os.path.splitext(path)[1].lstrip(".").lower()
+        name = f"{stem}_{ext}.jpg"
+        i = 2
+        while name in taken:
+            name = f"{stem}_{ext}_{i}.jpg"
+            i += 1
+    taken.add(name)
+    return os.path.join(output_dir, name)
+
+
+def _curve_flags(edit: EditParameters):
+    """(default_bright_curves, default_oklch_curves) of an edit: untouched
+    curve families take the kernels' staircase / identity_oklch variants
+    (the latter skips the OKLCH round trip, <= 3e-3 from the full path)."""
+    db = edit.curves[BRIGHTNESS].is_default(BRIGHTNESS)
+    doc = all(edit.curves[s].is_default(s)
+              for s in (HUE, SATURATION, LIGHTNESS))
+    return db, doc
+
+
+def edit_planes(planes, edit: EditParameters, extent):
+    """Sharpen + the fused develop kernel on already-linear planes."""
+    from ..kernels import fused
+    from ..ops.sharpen import unsharp_mask
+
+    db, doc = _curve_flags(edit)
+    packed = pack_params([edit], extent=extent, build_luts=False,
+                         device=planes.device)
+    if edit.sharpness:
+        planes = unsharp_mask(planes, edit.sharpness / 100.0 * 2.0)
+    # masks=None: the all-ones main mask is never materialized.
+    return fused.develop_post_geo_fused(
+        planes, packed, None, main_mask_all_ones=True,
+        default_bright_curves=db, default_oklch_curves=doc,
+        identity_oklch=doc)
+
+
+def raw_fast_render(raw, edit: EditParameters, device):
+    """One RAW of the batch fast path -> its sRGB render [3, H, W] after
+    DefaultCrop and orientation. A Bayer or X-Trans mosaic takes the
+    one-pass RAW kernel (one launch); LinearRaw data, and a DefaultCrop
+    under a vignette or sharpen (those must see the cropped frame, as
+    ``develop`` does), take the generic demosaic + develop kernel."""
+    from ..io.raw import cam2srgb_for, normalized_mosaic, with_effective_wb
+    from ..kernels.raw_pipeline import raw_develop_fused
+    from ..ops import demosaic as dm
+    from ..ops.geometry import orient_exif
+
+    raw = with_effective_wb(raw)
+    db, doc = _curve_flags(edit)
+    h, w = raw.mosaic.shape[:2]
+    mos01 = normalized_mosaic(raw, raw.mosaic, device)
+    cam = cam2srgb_for(raw)
+    crop_first = raw.default_crop is not None and (
+        edit.vignette != 0 or edit.sharpness != 0)
+    if raw.warp_rectilinear is not None or raw.warp_fisheye is not None:
+        raise NotPortedError("DNG OpcodeList3 warps", "ops/lenscorr")
+    if raw.pattern != "RGB" and not crop_first:
+        packed = pack_params([edit], extent=(h, w), build_luts=False,
+                             device=device)
+        srgb = raw_develop_fused(
+            mos01, raw.wb_gains, cam, packed,
+            np.float32(edit.sharpness / 100.0 * 2.0), pattern=raw.pattern,
+            default_bright_curves=db, default_oklch_curves=doc,
+            identity_oklch=doc)
+    else:
+        if raw.pattern == "RGB":
+            planes = dm.develop_linear_raw(mos01, raw.wb_gains, cam)
+        else:
+            planes = dm.develop_raw(mos01, raw.wb_gains, cam,
+                                    pattern=raw.pattern)
+        if crop_first:
+            cx, cy, cw, ch = raw.default_crop
+            srgb = edit_planes(planes[:, cy : cy + ch, cx : cx + cw], edit,
+                               (ch, cw))
+        else:
+            srgb = edit_planes(planes, edit, (h, w))
+    if raw.default_crop is not None and not crop_first:
+        cx, cy, cw, ch = raw.default_crop
+        srgb = srgb[:, cy : cy + ch, cx : cx + cw]
+    return orient_exif(srgb, raw.orientation)
+
+
+def _batch_raw_fast_path(paths, args) -> int:
+    """Batch-develop RAW files: host parse (LJPEG decode included), upload
+    + normalize, one RAW-kernel launch per image, YCbCr 4:2:0 on the card
+    and the native JPEG encoder."""
+    from ..io import jpegenc
+    from ..io.raw import decode_embedded_preview, parse_raw
+
+    dev = resolve_device(args.device)
+    edit = _params_from_args(args)
+    t0 = time.perf_counter()
+    total_pix = 0
+    taken: set = set()
+    for p in paths:
+        with open(p, "rb") as f:
+            data = f.read()
+        preview_note = ""
+        try:
+            raw = parse_raw(data)
+        except PhotoEditorError as e:
+            # Sensor data the port cannot decode: develop the embedded
+            # camera-rendered preview instead of aborting the batch.
+            res = decode_embedded_preview(data, dev)
+            if res is None:
+                raise
+            raw = None
+            planes, pv_exif = res
+            preview_note = f"  [embedded preview; sensor decode: {e}]"
+        if raw is None:
+            srgb = edit_planes(planes, edit, tuple(planes.shape[1:]))
+            exif_b = (pv_exif.get("_exif_bytes")
+                      or image_io.build_exif_bytes(pv_exif))
+        else:
+            srgb = raw_fast_render(raw, edit, dev)
+            exif_b = image_io.build_exif_bytes(raw.exif)
+        out = _batch_out_name(p, args.output_dir, taken)
+        body = jpegenc.encode_jpeg(srgb, quality=args.quality,
+                                   exif_bytes=exif_b)
+        with open(out, "wb") as f:
+            f.write(body)
+        # The ENCODED frame (post-DefaultCrop) counts, not the mosaic.
+        total_pix += srgb.shape[1] * srgb.shape[2]
+        print(f"  {p} -> {out}{preview_note}")
+    dt = time.perf_counter() - t0
+    n = len(paths)
+    print(f"batch (fused raw path) on {dev}: {n} images, "
+          f"{total_pix / 1e6:.4g} MPix in {dt:.1f} s "
+          f"({total_pix / 1e6 / dt:.4g} MPix/s end-to-end)")
+    return 0
+
+
+def cmd_batch(args) -> int:
+    from ..io.raw import is_raw_image
+
+    if args.bit_depth != 8:
+        print("batch exports JPEG; --bit-depth 16 is develop-only "
+              "(use develop with a .png output)", file=sys.stderr)
+        return 1
+    if args.lens_correct:
+        raise NotPortedError("--lens-correct", "ops/lenscorr and io/lensdb")
+    paths = sorted(
+        p for p in glob.glob(os.path.join(args.input_dir, "*"))
+        if os.path.splitext(p)[1].lower() in image_io.SUPPORTED_EXTENSIONS
+        or is_raw_image(p))
+    if not paths:
+        print(f"no images found in {args.input_dir}", file=sys.stderr)
+        return 1
+    os.makedirs(args.output_dir, exist_ok=True)
+
+    # The one-pass RAW kernel has no lens-distortion (geometry) stage:
+    # with --lens-distortion set, the editor path keeps batch output equal
+    # to `develop` with the same flags.
+    if (all(is_raw_image(p) for p in paths) and not args.preset
+            and not args.crop and not args.exact_path
+            and args.lens_distortion == 0):
+        return _batch_raw_fast_path(paths, args)
+
+    t0 = time.perf_counter()
+    total_pix = 0
+    taken: set = set()
+    for p in paths:
+        ed = PhotoEditor.open(p, use_kernel=not args.exact_path,
+                              device=args.device)
+        _apply_edit_flags(ed, args)
+        out = _batch_out_name(p, args.output_dir, taken)
+        ed.save(out, quality=args.quality)
+        h, w = ed.shape
+        total_pix += h * w
+        print(f"  {p} -> {out}")
+    dt = time.perf_counter() - t0
+    print(f"batch: {len(paths)} images, {total_pix / 1e6:.4g} MPix in "
+          f"{dt:.1f} s ({total_pix / 1e6 / dt:.4g} MPix/s end-to-end)")
+    return 0
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="rawphotoforge-tpu-torch")
     sub = ap.add_subparsers(dest="cmd", required=True)
@@ -166,6 +361,11 @@ def main(argv=None) -> int:
     p_dev.add_argument("output")
     _add_edit_flags(p_dev)
     p_dev.set_defaults(fn=cmd_develop)
+    p_batch = sub.add_parser("batch", help="develop a directory of images")
+    p_batch.add_argument("input_dir")
+    p_batch.add_argument("output_dir")
+    _add_edit_flags(p_batch)
+    p_batch.set_defaults(fn=cmd_batch)
     args = ap.parse_args(argv)
     try:
         return args.fn(args)

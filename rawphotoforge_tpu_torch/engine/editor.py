@@ -29,7 +29,7 @@ import numpy as np
 import torch
 
 from .._device import resolve_device
-from .._errbase import PhotoEditorError
+from .._errbase import NotPortedError, PhotoEditorError
 from ..core.color import linear_to_srgb
 from ..core.params import EditParameters, default_curve_slots, pack_params
 from ..io import image_io
@@ -101,11 +101,6 @@ class _Mask:
         self._levels: dict[str, torch.Tensor] = {}
 
 
-def _not_ported(what: str, item: str) -> PhotoEditorError:
-    return PhotoEditorError(
-        f"{what} is not ported yet (ROADMAP.md, still to port: {item})")
-
-
 class PhotoEditor:
     """A single-image editing session with a 3-level preview pyramid."""
 
@@ -136,6 +131,8 @@ class PhotoEditor:
             _, h, w = planes.shape
             full_padded = _pad_to_bucket(planes, edge=True)
         self.exif = dict(exif or {})
+        # The decode error when a RAW opened on its embedded preview.
+        self.opened_from_preview = None
         # Raw EXIF blob for write-back into exports.
         self._exif_bytes = self.exif.pop("_exif_bytes", None)
         self._use_kernel = bool(use_kernel)
@@ -177,10 +174,14 @@ class PhotoEditor:
     # -- construction -------------------------------------------------------
     @classmethod
     def open(cls, path: str, lens_correct=False, **kwargs) -> "PhotoEditor":
-        """Open an image file (display formats and 16-bit PPM)."""
+        """Open an image file (display formats, 16-bit PPM, DNG and other
+        TIFF-structured RAWs)."""
+        from ..io.raw import check_ported_extension
+
         if lens_correct:
-            raise _not_ported("lens-profile correction",
+            raise NotPortedError("lens-profile correction",
                               "ops/lenscorr and io/lensdb")
+        check_ported_extension(path)
         fmt = image_io.format_for_path(path)
         with open(path, "rb") as f:
             data = f.read()
@@ -190,11 +191,26 @@ class PhotoEditor:
     def from_bytes(cls, data: bytes, fmt: str, device=None,
                    **kwargs) -> "PhotoEditor":
         """Decode container bytes on the host, upload bucket-padded planes
-        to ``device`` and build the session."""
+        to ``device`` and build the session (a RAW develops on the bucket
+        grid where it can, ``io/raw.develop_raw_image_padded``). When RAW
+        sensor data cannot decode and the file carries a camera-rendered
+        JPEG preview, the session opens on the preview, with
+        ``opened_from_preview`` recording the decode error."""
         dev_ = resolve_device(device)
-        hd = image_io.decode_image_host(data, fmt)
-        return cls(hd.upload_padded(dev_, SHAPE_BUCKET), exif=hd.exif,
-                   true_shape=hd.shape, device=dev_, **kwargs)
+        reason = None
+        try:
+            hd = image_io.decode_image_host(data, fmt)
+        except PhotoEditorError as e:
+            from ..io.raw import decode_embedded_preview_host
+
+            hd = decode_embedded_preview_host(data) if fmt == "DNG" else None
+            if hd is None:
+                raise
+            reason = str(e)
+        ed = cls(hd.upload_padded(dev_, SHAPE_BUCKET), exif=hd.exif,
+                 true_shape=hd.shape, device=dev_, **kwargs)
+        ed.opened_from_preview = reason
+        return ed
 
     @classmethod
     def from_rgb_f32(cls, hwc: np.ndarray, **kwargs) -> "PhotoEditor":
@@ -528,7 +544,7 @@ class PhotoEditor:
         so a failure never truncates an existing file."""
         fmt = image_io.format_for_path(path)
         if fmt == "DNG":
-            raise _not_ported("HDR DNG export", "HDR DNG export")
+            raise NotPortedError("HDR DNG export", "HDR DNG export")
         if bit_depth == 16:
             if fmt == "PNG":
                 fmt = "PNG16"

@@ -10,8 +10,9 @@ contract (rust/photo-editor/src/image.rs):
   (web-ts/core/image.ts:146-195).
 
 Pillow is imported lazily, inside the PIL-format paths: PPM16 in and
-PPM16/PNG16 out need only numpy and zlib. RAW containers (and DNG) belong
-to a later slice of the port and raise a typed error here.
+PPM16/PNG16 out need only numpy and zlib. RAW containers decode through
+``io/raw`` (DNG and TIFF-structured RAWs; vendor containers raise a typed
+not-ported error).
 """
 
 from __future__ import annotations
@@ -39,12 +40,11 @@ RAW_EXTENSIONS = {
     ".rwl", ".raw",
 }
 
-# Size at which the JAX package routes a JPEG export of a device render to
-# its sparse-coefficient encoder (io/jpegenc, not yet ported).
+# Size from which a JPEG export goes through io/jpegenc (YCbCr 4:2:0 on the
+# render's device, 1.5 B/px fetched) instead of the u8 RGB fetch + Pillow.
+# The JAX package sends these to its sparse-coefficient wires (io/jpegbits,
+# not yet ported); the port takes jpegenc's dense wire.
 SPARSE_MIN_PIXELS = 4 << 20
-
-NOT_PORTED_RAW = ("RAW input is not ported yet (ROADMAP.md, still to port: "
-                  "the RAW develop slice)")
 
 
 class ImageIOError(PhotoEditorError, ValueError):
@@ -341,21 +341,28 @@ class HostDecoded:
         self._scale = scale
         self._linearize = linearize
 
+    def upload(self, device) -> torch.Tensor:
+        return _upload(self._chw, self._scale, self._linearize, device)
+
     def upload_padded(self, device, bucket: int) -> torch.Tensor:
         return _upload(pad_to_bucket_np(self._chw, bucket), self._scale,
                        self._linearize, device)
 
 
-def decode_image_host(data: bytes, fmt: str) -> HostDecoded:
+def decode_image_host(data: bytes, fmt: str):
     """Container parse on the host: every file-content error surfaces here.
     PPM16 samples are linear already; PIL formats other than TIFF are
-    linearized on the device after the upload (image.rs:430-440)."""
+    linearized on the device after the upload (image.rs:430-440); RAW
+    containers ("DNG") return ``io/raw.RawHostDecoded``, whose upload runs
+    the device develop."""
     if fmt == "PPM16":
         u16 = _parse_ppm16(data)
         return HostDecoded({}, np.ascontiguousarray(u16.transpose(2, 0, 1)),
                            65535.0, False)
     if fmt == "DNG":
-        raise ImageIOError(NOT_PORTED_RAW)
+        from .raw import decode_raw_host
+
+        return decode_raw_host(data)
     from PIL import Image as PILImage, ImageOps
 
     from .exif import parse_exif
@@ -502,10 +509,10 @@ def encode_image(planes: torch.Tensor, fmt: str, quality: int = 95,
     if fmt == "JPEG" and host_crop is None:
         npix = int(planes.shape[-2]) * int(planes.shape[-1])
         if npix >= SPARSE_MIN_PIXELS:
-            raise ImageIOError(
-                f"a {npix}-pixel JPEG export goes through the sparse JPEG "
-                "encoder, which is not ported yet (ROADMAP.md, still to "
-                "port: io/jpegenc); export .png, .tif or .ppm instead")
+            from . import jpegenc
+
+            return jpegenc.encode_jpeg(planes, quality=quality,
+                                       exif_bytes=exif_bytes)
     from PIL import Image as PILImage
 
     u8 = hcrop(fetch_u8_hwc(planes))

@@ -1,0 +1,391 @@
+"""RAW ingestion glue: DNG bytes -> linear sRGB planes on the device.
+
+The JAX package's ``io/raw.py``: container parse on the host
+(``io/dng``), then normalize -> WB -> demosaic -> camera matrix on the
+device (``ops/demosaic``), DefaultCrop and EXIF orientation. DNG and
+TIFF-structured RAWs decode; the vendor containers the JAX package parses
+with its own readers (Canon CR2, Panasonic RW2, Fujifilm RAF) are sniffed
+and refused with ``NotPortedError``, as are DNG OpcodeList3 warps and
+radial vignetting (``ops/lenscorr``) and the host instant preview.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+import struct
+import warnings
+
+import numpy as np
+import torch
+
+from .._device import resolve_device
+from .._errbase import NotPortedError
+from ..ops import demosaic as dm
+from ..ops.develop import replicate_true_edges
+from ..ops.geometry import orient_exif
+from .dng import RawImage, read_dng
+from .image_io import RAW_EXTENSIONS
+
+# Containers the JAX package reads with vendor parsers the port lacks
+# (refused by extension before the file is read, and by content below).
+VENDOR_EXTENSIONS = {".cr2", ".cr3", ".crw", ".rw2", ".rwl", ".raf", ".x3f"}
+_VENDOR_ITEM = "vendor containers (io/cr2, io/vendor_raw, io/vendor_packed)"
+
+
+def is_raw_image(path: str) -> bool:
+    """Extension-based RAW detection (image.rs:14-179)."""
+    return os.path.splitext(path)[1].lower() in RAW_EXTENSIONS
+
+
+def check_ported_extension(path: str) -> None:
+    """Refuse a vendor container by its extension (typed, names ROADMAP)."""
+    ext = os.path.splitext(path)[1].lower()
+    if ext in VENDOR_EXTENSIONS:
+        raise NotPortedError(f"RAW input from a {ext} container", _VENDOR_ITEM)
+
+
+def parse_raw(data: bytes, apply_opcodes: bool = True) -> RawImage:
+    """Sniff the container type and parse RAW bytes into a RawImage: DNG
+    and other TIFF-structured RAWs through the DNG walker; Canon CR2
+    (``CR\\x02`` at byte 8), Panasonic RW2 (TIFF magic 0x0055) and
+    Fujifilm RAF (``FUJIFILMCCD-RAW``) raise ``NotPortedError``."""
+    cr2 = (len(data) > 12 and data[:4] == b"II\x2a\x00"
+           and data[8:10] == b"CR" and data[10] == 2)
+    rw2 = (len(data) >= 8 and data[:2] == b"II"
+           and struct.unpack_from("<H", data, 2)[0] == 0x0055)
+    raf = data[:15] == b"FUJIFILMCCD-RAW"
+    if cr2 or rw2 or raf:
+        kind = "Canon CR2" if cr2 else ("Panasonic RW2" if rw2 else
+                                        "Fujifilm RAF")
+        raise NotPortedError(f"RAW input from a {kind} container",
+                             _VENDOR_ITEM)
+    return read_dng(data, apply_opcodes=apply_opcodes)
+
+
+def _check_opcodes(raw: RawImage) -> None:
+    if (raw.warp_rectilinear is not None or raw.warp_fisheye is not None
+            or raw.vignette_radial is not None):
+        raise NotPortedError("DNG OpcodeList3 (warp, radial vignette)",
+                             "ops/lenscorr")
+
+
+def decode_embedded_preview(data: bytes, device=None):
+    """Decode the embedded camera-rendered JPEG preview of a RAW file:
+    (linear planes f32 [3, H, W] on ``device``, exif dict), or None when
+    there is no decodable preview."""
+    hd = decode_embedded_preview_host(data)
+    if hd is None:
+        return None
+    return hd.upload(resolve_device(device)), hd.exif
+
+
+def decode_embedded_preview_host(data: bytes):
+    """Host phase of decode_embedded_preview: preview extraction, the
+    Pillow decode and the container-EXIF merge (image_io.HostDecoded)."""
+    from .._errbase import PhotoEditorError
+    from .dng import extract_container_exif, extract_preview
+    from .image_io import ImageIOError, decode_image_host
+
+    jpeg = extract_preview(data)
+    if jpeg is None:
+        return None
+    try:
+        hd = decode_image_host(jpeg, "JPEG")
+    except PhotoEditorError:
+        raise
+    except Exception as e:  # noqa: BLE001 — PIL's hierarchy stays inside
+        raise ImageIOError(f"embedded preview failed to decode: {e}") from e
+    exif = hd.exif
+    # The container's tags are the capture record; the preview's parsed
+    # tags fill per field, and its raw blob is dropped when the container
+    # knows fields the blob lacks (write-back prefers the blob verbatim).
+    merged = dict(extract_container_exif(data))
+    pv_fields = {k for k in exif if k != "_exif_bytes"}
+    if merged and any(k not in pv_fields for k in merged):
+        exif.pop("_exif_bytes", None)
+    merged.update(exif)
+    hd.exif = merged
+    return hd
+
+
+def estimate_gray_world_gains(mosaic: np.ndarray, pattern: str,
+                              black: float, white: float) -> tuple:
+    """Gray-world WB gains from per-CFA-channel means (host numpy), for
+    RAWs without a usable camera WB; clipped to [0.25, 8]."""
+    m = np.asarray(mosaic)
+    if m.ndim == 3:  # demosaiced RGB
+        sub = m[:: max(1, m.shape[0] // 512), :: max(1, m.shape[1] // 512)]
+        means = sub.reshape(-1, 3).astype(np.float64).mean(axis=0)
+    else:
+        tile = np.asarray(dm.NAMED_CFA[pattern])
+        ph, pw = tile.shape
+        th, tw = m.shape[0] // ph, m.shape[1] // pw
+        if th == 0 or tw == 0:
+            return (1.0, 1.0, 1.0)
+        # Subsample whole CFA tiles (every channel phase kept).
+        t = m[: th * ph, : tw * pw].reshape(th, ph, tw, pw)
+        t = t[:: max(1, th // 512), :, :: max(1, tw // 512), :]
+        sub = t.reshape(t.shape[0] * ph, t.shape[2] * pw)
+        yy, xx = np.mgrid[0:sub.shape[0], 0:sub.shape[1]]
+        chan = tile[yy % ph, xx % pw]
+        vals = sub.astype(np.float64)
+        means = np.array([
+            vals[chan == c].mean() if (chan == c).any() else 1.0
+            for c in range(3)
+        ])
+    span = max(float(white) - float(black), 1e-9)
+    means = np.maximum((means - float(black)) / span, 1e-6)
+    gains = np.clip(means[1] / means, 0.25, 8.0)
+    return (float(gains[0]), 1.0, float(gains[2]))
+
+
+def with_effective_wb(raw: RawImage) -> RawImage:
+    """Substitute gray-world gains when the container had no usable camera
+    WB (wb_known=False)."""
+    if not raw.wb_known and tuple(raw.wb_gains) == (1.0, 1.0, 1.0):
+        raw = dataclasses.replace(
+            raw, wb_gains=estimate_gray_world_gains(
+                raw.mosaic, raw.pattern, raw.black_level, raw.white_level))
+    return raw
+
+
+def cam2srgb_for(raw: RawImage) -> np.ndarray:
+    """The camera -> linear sRGB matrix of a RAW (identity without a
+    ColorMatrix1)."""
+    if raw.xyz_to_cam is not None:
+        return dm.cam_matrix_to_srgb(raw.xyz_to_cam)
+    return np.eye(3, dtype=np.float32)
+
+
+def upload_mosaic(mosaic: np.ndarray, device) -> torch.Tensor:
+    """Host CFA samples -> a device tensor for ``normalize_mosaic``: a u16
+    mosaic crosses at 2 B/sample as its i16 bit pattern and widens on the
+    device; float (HDR) data crosses as f32."""
+    m = np.ascontiguousarray(mosaic)
+    with warnings.catch_warnings():
+        # A mosaic parsed from file bytes is read-only; the tensor made
+        # from it is copied by the widening below and never written.
+        warnings.simplefilter("ignore", UserWarning)
+        if m.dtype == np.uint16:
+            t = torch.from_numpy(m.view(np.int16)).to(device)
+            return t.to(torch.int32) & 0xFFFF
+        return torch.from_numpy(m.astype(np.float32)).to(device)
+
+
+def normalized_mosaic(raw: RawImage, mosaic: np.ndarray, device) -> torch.Tensor:
+    """Upload + black/white normalize on the device."""
+    return dm.normalize_mosaic(upload_mosaic(mosaic, device),
+                               raw.black_level, raw.white_level)
+
+
+# Which mosaic sides take the bucket pad, per EXIF orientation:
+# (pad_top, pad_left), chosen so orient_exif maps the pad to the OUTPUT's
+# bottom/right and the true region lands at the origin.
+_PAD_SIDES = {
+    0: (False, False), 1: (False, False), 2: (False, True),
+    3: (True, True), 4: (True, False), 5: (False, False),
+    6: (True, False), 7: (True, True), 8: (False, True),
+}
+
+
+def bucket_pads(raw: RawImage):
+    """Reflect-pad amounts (ph, pw) for the bucket-stable develop, or None
+    when the file must take the per-extent path (the JAX package's rules:
+    a DefaultCrop adds one bucket per axis so the bucket-size crop slice
+    stays in bounds; a crop under rotation, an odd top/left Bayer pad, or
+    a 1-px pad fall back)."""
+    from ..engine.editor import SHAPE_BUCKET
+
+    h, w = raw.mosaic.shape[:2]
+    if h < 2 or w < 2:
+        return None
+    ph, pw = (-h) % SHAPE_BUCKET, (-w) % SHAPE_BUCKET
+    sides = _PAD_SIDES.get(raw.orientation)
+    if sides is None:
+        return None
+    if raw.orientation not in (0, 1):
+        if raw.default_crop is not None:
+            return None
+        if raw.pattern in dm.BAYER_PATTERNS and (
+                (sides[0] and ph % 2) or (sides[1] and pw % 2)):
+            return None
+    if raw.default_crop is not None:
+        cx, cy, cw, ch = raw.default_crop
+        if not (0 <= cy and 0 <= cx and cy + ch <= h and cx + cw <= w
+                and ch >= 1 and cw >= 1):
+            return None
+        ph += SHAPE_BUCKET
+        pw += SHAPE_BUCKET
+    if ph == 1 or pw == 1:
+        return None
+    return ph, pw
+
+
+def bucket_stable_eligible(raw: RawImage) -> bool:
+    """Whether this RAW takes the bucket-stable develop
+    (develop_raw_image_padded): Bayer, X-Trans or LinearRaw, with pads
+    ``bucket_pads`` accepts. Its true region equals develop_raw_image's
+    output bit for bit (Bayer: the reflect pad reproduces Malvar's own
+    edge reflection and keeps the phase; X-Trans: pad sites count as
+    absent samples of the masked normalized convolution)."""
+    if raw.pattern not in dm.BAYER_PATTERNS and raw.pattern not in (
+            "RGB", "XTRANS"):
+        return False
+    return bucket_pads(raw) is not None
+
+
+def develop_raw_image_padded(raw: RawImage, method: str = "malvar",
+                             device=None) -> torch.Tensor:
+    """Bucket-stable develop: reflect-pad the mosaic on the host to the
+    128-bucket shape, develop the padded grid on ``device``, slice the
+    DefaultCrop at bucket size, orient, and edge-replicate the true region
+    into the pad. Returns planes [3, Hb, Wb] whose true region equals
+    develop_raw_image's output."""
+    from ..engine.editor import bucket_shape
+
+    dev = resolve_device(device)
+    _check_opcodes(raw)
+    pads = bucket_pads(raw)
+    if pads is None or not bucket_stable_eligible(raw):
+        raise ValueError("this RAW is not bucket-stable eligible")
+    raw = with_effective_wb(raw)
+    m = raw.mosaic
+    pad_top, pad_left = _PAD_SIDES[raw.orientation]
+    pad = [(pads[0], 0) if pad_top else (0, pads[0]),
+           (pads[1], 0) if pad_left else (0, pads[1])]
+    pad += [(0, 0)] * (m.ndim - 2)
+    # numpy on the host: torch's reflect pad needs a batch dimension and
+    # refuses pads as wide as the image.
+    mosaic01 = normalized_mosaic(raw, np.pad(m, pad, mode="reflect"), dev)
+    cam = cam2srgb_for(raw)
+    if raw.pattern == "RGB":
+        planes = dm.develop_linear_raw(mosaic01, raw.wb_gains, cam)
+    elif raw.pattern == "XTRANS":
+        th0, tw0 = raw.mosaic.shape[:2]
+        origin = (pads[0] if pad_top else 0, pads[1] if pad_left else 0)
+        planes = dm.develop_raw(mosaic01, raw.wb_gains, cam,
+                                pattern=raw.pattern, method=method,
+                                true_shape=(th0, tw0), true_origin=origin)
+    else:
+        planes = dm.develop_raw(mosaic01, raw.wb_gains, cam,
+                                pattern=raw.pattern, method=method)
+    if raw.default_crop is not None:
+        cx, cy, cw, ch = raw.default_crop
+        bh, bw = bucket_shape(ch, cw)
+        planes = planes[:, cy : cy + bh, cx : cx + bw]
+    planes = orient_exif(planes, raw.orientation)
+    th, tw = raw.mosaic.shape[:2]
+    if raw.default_crop is not None:
+        th, tw = raw.default_crop[3], raw.default_crop[2]
+    if raw.orientation in (5, 6, 7, 8):
+        th, tw = tw, th
+    return replicate_true_edges(planes, th, tw)
+
+
+def develop_raw_image(raw: RawImage, method: str = "malvar", device=None):
+    """RawImage -> (linear sRGB planes f32 [3, H, W] on ``device``, exif)."""
+    dev = resolve_device(device)
+    _check_opcodes(raw)
+    raw = with_effective_wb(raw)
+    mosaic01 = normalized_mosaic(raw, raw.mosaic, dev)
+    cam = cam2srgb_for(raw)
+    if raw.pattern == "RGB":
+        planes = dm.develop_linear_raw(mosaic01, raw.wb_gains, cam)
+    else:
+        planes = dm.develop_raw(mosaic01, raw.wb_gains, cam,
+                                pattern=raw.pattern, method=method)
+    if raw.default_crop is not None:
+        cx, cy, cw, ch = raw.default_crop
+        planes = planes[:, cy : cy + ch, cx : cx + cw]
+    return orient_exif(planes, raw.orientation), dict(raw.exif)
+
+
+class RawHostDecoded:
+    """The host half of a RAW decode (image_io.HostDecoded's contract):
+    metadata and the final true shape, knowable without developing, and
+    the device half as ``upload`` / ``upload_padded``."""
+
+    __slots__ = ("exif", "shape", "raw")
+
+    def __init__(self, raw: RawImage):
+        self.raw = raw
+        self.exif = dict(raw.exif)
+        h, w = raw.mosaic.shape[:2]
+        if raw.default_crop is not None:
+            h, w = raw.default_crop[3], raw.default_crop[2]
+        if raw.orientation in (5, 6, 7, 8):
+            h, w = w, h
+        self.shape = (h, w)
+
+    def upload(self, device) -> torch.Tensor:
+        return develop_raw_image(self.raw, device=device)[0]
+
+    def upload_padded(self, device, bucket: int) -> torch.Tensor:
+        """Planes on the ``bucket`` grid of ``shape``: the bucket-stable
+        develop where the file allows it, else the exact-extent develop
+        edge-padded on the device."""
+        from ..engine.editor import SHAPE_BUCKET, bucket_shape
+
+        if bucket == SHAPE_BUCKET and bucket_stable_eligible(self.raw):
+            return develop_raw_image_padded(self.raw, device=device)
+        planes = self.upload(device)
+        hb, wb = bucket_shape(*self.shape, bucket=bucket)
+        return replicate_true_edges(
+            torch.nn.functional.pad(planes, (0, wb - self.shape[1], 0,
+                                             hb - self.shape[0])),
+            *self.shape)
+
+
+def decode_raw_host(data: bytes) -> RawHostDecoded:
+    """Host phase of a RAW decode: the container parse (every file-content
+    error surfaces here); the develop runs at upload."""
+    return RawHostDecoded(parse_raw(data))
+
+
+def synthetic_raw(
+    planes_linear: np.ndarray,
+    pattern: str = "RGGB",
+    black_level: int = 512,
+    white_level: int = 16383,
+    wb_gains=(2.0, 1.0, 1.5),
+    xyz_to_cam: np.ndarray | None = None,
+) -> RawImage:
+    """Mosaic a linear RGB image into a synthetic RawImage (tests, smoke):
+    divide by the WB gains, optionally push through the inverse develop
+    matrix, sample the CFA, quantize into [black, white]."""
+    rgb = np.asarray(planes_linear, dtype=np.float32)
+    assert rgb.ndim == 3 and rgb.shape[0] == 3
+    _, h, w = rgb.shape
+    if xyz_to_cam is not None:
+        srgb2cam = np.linalg.inv(dm.cam_matrix_to_srgb(xyz_to_cam))
+        rgb = np.einsum("ij,jhw->ihw", srgb2cam.astype(np.float32), rgb)
+    inv_gains = 1.0 / np.asarray(wb_gains, dtype=np.float32)
+    rgb = rgb * inv_gains[:, None, None]
+
+    tile = np.asarray(dm.NAMED_CFA[pattern], dtype=np.int64)
+    ph, pw = tile.shape
+    yy, xx = np.mgrid[0:h, 0:w]
+    chan = tile[yy % ph, xx % pw]
+    mosaic01 = np.take_along_axis(
+        rgb.reshape(3, -1), chan.reshape(1, -1), axis=0).reshape(h, w)
+    span = white_level - black_level
+    mosaic = np.clip(np.round(mosaic01 * span + black_level), 0,
+                     white_level).astype(np.uint16)
+    return RawImage(
+        mosaic=mosaic,
+        pattern=pattern,
+        black_level=float(black_level),
+        white_level=float(white_level),
+        wb_gains=tuple(float(g) for g in wb_gains),
+        xyz_to_cam=xyz_to_cam,
+        exif={"Make": "Synthetic", "Model": "rawphotoforge-tpu"},
+    )
+
+
+def raw_image_from_numpy(fields: dict) -> RawImage:
+    """The port's RawImage from the JAX package's RawImage fields (numpy
+    and Python values already; ``dataclasses.asdict`` of one), so tests
+    feed both packages the same decoded file."""
+    names = {f.name for f in dataclasses.fields(RawImage)}
+    return RawImage(**{k: v for k, v in fields.items() if k in names})

@@ -1,0 +1,569 @@
+// rpf_native: the port's native host codecs, copied from the JAX
+// package's native/rpf_native.cpp (the same source for these functions, so
+// they give the same bytes): the lossless-JPEG scan decoder and bit packer
+// behind io/ljpeg.py, and the baseline JPEG 4:2:0 encoder behind
+// io/jpegenc.py's dense wire. rawphotoforge_tpu_torch/native/__init__.py
+// builds this file with g++ at first use and binds it with ctypes.
+//
+// ABI: plain C, ctypes-friendly. All functions return 0 on success.
+
+#include <cmath>
+#include <cstdint>
+#include <new>
+#include <cstring>
+#include <algorithm>
+#include <vector>
+
+extern "C" {
+
+// Error codes.
+enum {
+  RPF_OK = 0,
+  RPF_ERR_ARGS = 1,
+};
+
+// ---------------------------------------------------------------------------
+// Lossless-JPEG (ITU-T.81 process 14) scan decoding — the per-sample
+// Huffman hot loop behind io/ljpeg.py. One call decodes one restart
+// segment (already 0xFF00-unstuffed by the Python layer) into the shared
+// output plane; prediction state resets at segment entry per T.81 F.2.1.3.
+// Semantics oracle: the JAX package's io/ljpeg._decode_scan_py.
+// ---------------------------------------------------------------------------
+
+enum {
+  RPF_ERR_BAD_HUFF = 3,
+  RPF_ERR_TRUNCATED = 4,
+};
+
+namespace {
+
+struct LjBitReader {
+  const uint8_t* p;
+  int64_t n;        // total bytes
+  int64_t byte;     // next byte to load
+  uint64_t cache;   // MSB-aligned bit cache
+  int ncached;
+
+  void fill() {
+    if (byte + 8 <= n) {
+      // Bulk refill: top up to a whole number of bytes from one load.
+      uint64_t v;
+      std::memcpy(&v, p + byte, 8);
+#if defined(__GNUC__) || defined(__clang__)
+      v = __builtin_bswap64(v);
+#else
+      v = ((v & 0xFFULL) << 56) | ((v & 0xFF00ULL) << 40) |
+          ((v & 0xFF0000ULL) << 24) | ((v & 0xFF000000ULL) << 8) |
+          ((v >> 8) & 0xFF000000ULL) | ((v >> 24) & 0xFF0000ULL) |
+          ((v >> 40) & 0xFF00ULL) | (v >> 56);
+#endif
+      int k = (64 - ncached) >> 3;
+      if (k) {
+        uint64_t masked = (k >= 8) ? v : (v & (~0ULL << (64 - 8 * k)));
+        cache |= masked >> ncached;
+        byte += k;
+        ncached += 8 * k;
+      }
+      return;
+    }
+    while (ncached <= 48) {
+      uint64_t b = (byte < n) ? p[byte] : 0;  // zero-pad past end
+      ++byte;
+      cache |= b << (56 - ncached);
+      ncached += 8;
+    }
+  }
+  inline uint32_t peek16() {
+    if (ncached < 16) fill();
+    return static_cast<uint32_t>(cache >> 48);
+  }
+  inline void skip(int k) {
+    cache <<= k;
+    ncached -= k;
+  }
+  inline uint32_t get(int k) {
+    if (k == 0) return 0;
+    if (ncached < k) fill();
+    uint32_t v = static_cast<uint32_t>(cache >> (64 - k));
+    cache <<= k;
+    ncached -= k;
+    return v;
+  }
+};
+
+}  // namespace
+
+int rpf_ljpeg_decode_scan(
+    const uint8_t* seg, int64_t seg_bytes,
+    uint16_t* out,                 // [rows, mcus_per_row * ncomp]
+    int rows, int mcus_per_row, int ncomp,
+    const uint8_t* lut_sym,        // [ntab << 16] peek-16 symbol LUT
+    const uint8_t* lut_len,        // [ntab << 16] peek-16 code lengths
+    const uint8_t* comp_tab,       // [ncomp]
+    int ntab,
+    int predictor, int precision, int pt,
+    int64_t mcu_start, int64_t mcu_count) {
+  // The Huffman LUTs are built once per frame by the Python layer
+  // (io/ljpeg._build_huffman_lut) and shared across restart segments.
+  if (!seg || !out || !lut_sym || !lut_len || !comp_tab || rows <= 0 ||
+      mcus_per_row <= 0 || ncomp <= 0 || ncomp > 4 || ntab <= 0 ||
+      predictor < 1 || predictor > 7 || precision < 2 || precision > 16 ||
+      pt < 0 || pt >= precision)
+    return RPF_ERR_ARGS;
+  // The ONLY write-bounds parameters: an out-of-range MCU window would be
+  // a heap overflow, so it is validated here, not just in the Python
+  // framing layer.
+  const int64_t total_mcus =
+      static_cast<int64_t>(rows) * mcus_per_row;
+  if (mcu_start < 0 || mcu_count < 0 || mcu_start + mcu_count > total_mcus)
+    return RPF_ERR_ARGS;
+
+  LjBitReader br{seg, seg_bytes, 0, 0, 0};
+  const int stride = mcus_per_row * ncomp;
+  const int32_t dflt = 1 << (precision - pt - 1);
+  bool seg_first[4] = {true, true, true, true};
+  // T.81 H.1.2.1: the interval's first line predicts with 1-D Ra.
+  const int first_row = static_cast<int>(mcu_start / mcus_per_row);
+  int rc = RPF_OK;
+
+  for (int64_t idx = mcu_start; idx < mcu_start + mcu_count; ++idx) {
+    int row = static_cast<int>(idx / mcus_per_row);
+    int col = static_cast<int>(idx % mcus_per_row);
+    uint16_t* orow = out + static_cast<size_t>(row) * stride;
+    for (int c = 0; c < ncomp; ++c) {
+      const size_t toff = static_cast<size_t>(comp_tab[c]) << 16;
+      uint32_t peek = br.peek16();
+      int ssss = lut_sym[toff + peek];
+      int ln = lut_len[toff + peek];
+      if (ln == 0) return RPF_ERR_BAD_HUFF;
+      br.skip(ln);
+      int32_t diff;
+      if (ssss == 16) {
+        diff = 32768;
+      } else if (ssss == 0) {
+        diff = 0;
+      } else {
+        uint32_t v = br.get(ssss);
+        diff = (v >= (1u << (ssss - 1)))
+                   ? static_cast<int32_t>(v)
+                   : static_cast<int32_t>(v) - (1 << ssss) + 1;
+      }
+      int x = col * ncomp + c;
+      int32_t pred;
+      if (seg_first[c]) {
+        pred = dflt;
+        seg_first[c] = false;
+      } else if (row == first_row) {
+        pred = orow[x - ncomp];  // 1-D Ra on the interval's first line
+      } else if (col == 0) {
+        pred = *(orow - stride + x);
+      } else {
+        int32_t ra = orow[x - ncomp];
+        int32_t rb = *(orow - stride + x);
+        int32_t rcn = *(orow - stride + x - ncomp);
+        switch (predictor) {
+          case 1: pred = ra; break;
+          case 2: pred = rb; break;
+          case 3: pred = rcn; break;
+          case 4: pred = ra + rb - rcn; break;
+          case 5: pred = ra + ((rb - rcn) >> 1); break;
+          case 6: pred = rb + ((ra - rcn) >> 1); break;
+          default: pred = (ra + rb) >> 1; break;
+        }
+      }
+      orow[x] = static_cast<uint16_t>((pred + diff) & 0xFFFF);
+    }
+  }
+  // Consumed more bits than the segment holds -> truncated stream.
+  if (8 * br.byte - br.ncached > 8 * seg_bytes) rc = RPF_ERR_TRUNCATED;
+  return rc;
+}
+
+// Lossless-JPEG bit packing (encoder hot loop): MSB-first concatenation
+// of (value, nbits<=32) entries, final partial byte padded with 1s (the
+// JPEG byte-align rule). Returns bytes written. Semantics oracle: the
+// JAX package's io/ljpeg._pack_bits (numpy).
+int64_t rpf_ljpeg_pack_bits(const int64_t* vals, const uint8_t* lens,
+                            int64_t n, uint8_t* out) {
+  if ((!vals || !lens || !out) && n > 0) return -1;
+  uint64_t acc = 0;
+  int nacc = 0;
+  int64_t o = 0;
+  for (int64_t i = 0; i < n; ++i) {
+    const int l = lens[i];
+    if (l > 32) return -1;  // > code+extra width: acc << l would drop bits
+    const uint64_t mask = (1ULL << l) - 1;
+    acc = (acc << l) | (static_cast<uint64_t>(vals[i]) & mask);
+    nacc += l;
+    while (nacc >= 8) {
+      out[o++] = static_cast<uint8_t>(acc >> (nacc - 8));
+      nacc -= 8;
+    }
+  }
+  if (nacc > 0) {
+    const int pad = 8 - nacc;
+    out[o++] = static_cast<uint8_t>(((acc << pad) | ((1u << pad) - 1)) & 0xFF);
+  }
+  return o;
+}
+
+// ---------------------------------------------------------------------------
+// Baseline JPEG encoder (ITU T.81 SOF0, 4:2:0, JFIF) from planar YCbCr.
+//
+// Export hot path: the device converts sRGB -> YCbCr and 2x2-subsamples
+// chroma (io/jpegenc.py), so the fetch moves 1.5 bytes/pixel; this
+// encoder turns the fetched planes into a JFIF stream (fDCT, Annex K
+// quantization tables scaled by quality, Annex K.3 Huffman tables —
+// emitted in the DHT, so bitstream validity never depends on table
+// choice). Replaces PIL in the batch-export path (the reference encodes
+// via the `image` crate, image.rs:482-511).
+// ---------------------------------------------------------------------------
+
+namespace jpg {
+
+// Natural order of each zigzag position (T.81 Figure 5 sequence).
+static const uint8_t kZigzag[64] = {
+    0,  1,  8,  16, 9,  2,  3,  10, 17, 24, 32, 25, 18, 11, 4,  5,
+    12, 19, 26, 33, 40, 48, 41, 34, 27, 20, 13, 6,  7,  14, 21, 28,
+    35, 42, 49, 56, 57, 50, 43, 36, 29, 22, 15, 23, 30, 37, 44, 51,
+    58, 59, 52, 45, 38, 31, 39, 46, 53, 60, 61, 54, 47, 55, 62, 63};
+
+// Annex K.1 / K.2 base quantization tables (natural order).
+static const int kQLum[64] = {
+    16, 11, 10, 16, 24,  40,  51,  61,  12, 12, 14, 19, 26,  58,  60,  55,
+    14, 13, 16, 24, 40,  57,  69,  56,  14, 17, 22, 29, 51,  87,  80,  62,
+    18, 22, 37, 56, 68,  109, 103, 77,  24, 35, 55, 64, 81,  104, 113, 92,
+    49, 64, 78, 87, 103, 121, 120, 101, 72, 92, 95, 98, 112, 100, 103, 99};
+static const int kQChr[64] = {
+    17, 18, 24, 47, 99, 99, 99, 99, 18, 21, 26, 66, 99, 99, 99, 99,
+    24, 26, 56, 99, 99, 99, 99, 99, 47, 66, 99, 99, 99, 99, 99, 99,
+    99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99,
+    99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99};
+
+// Annex K.3 typical Huffman tables: BITS[16] then HUFFVAL.
+static const uint8_t kDcLumBits[16] = {0, 1, 5, 1, 1, 1, 1, 1,
+                                       1, 0, 0, 0, 0, 0, 0, 0};
+static const uint8_t kDcVals[12] = {0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11};
+static const uint8_t kDcChrBits[16] = {0, 3, 1, 1, 1, 1, 1, 1,
+                                       1, 1, 1, 0, 0, 0, 0, 0};
+static const uint8_t kAcLumBits[16] = {0, 2, 1, 3, 3, 2, 4, 3,
+                                       5, 5, 4, 4, 0, 0, 1, 0x7d};
+static const uint8_t kAcLumVals[162] = {
+    0x01, 0x02, 0x03, 0x00, 0x04, 0x11, 0x05, 0x12, 0x21, 0x31, 0x41, 0x06,
+    0x13, 0x51, 0x61, 0x07, 0x22, 0x71, 0x14, 0x32, 0x81, 0x91, 0xa1, 0x08,
+    0x23, 0x42, 0xb1, 0xc1, 0x15, 0x52, 0xd1, 0xf0, 0x24, 0x33, 0x62, 0x72,
+    0x82, 0x09, 0x0a, 0x16, 0x17, 0x18, 0x19, 0x1a, 0x25, 0x26, 0x27, 0x28,
+    0x29, 0x2a, 0x34, 0x35, 0x36, 0x37, 0x38, 0x39, 0x3a, 0x43, 0x44, 0x45,
+    0x46, 0x47, 0x48, 0x49, 0x4a, 0x53, 0x54, 0x55, 0x56, 0x57, 0x58, 0x59,
+    0x5a, 0x63, 0x64, 0x65, 0x66, 0x67, 0x68, 0x69, 0x6a, 0x73, 0x74, 0x75,
+    0x76, 0x77, 0x78, 0x79, 0x7a, 0x83, 0x84, 0x85, 0x86, 0x87, 0x88, 0x89,
+    0x8a, 0x92, 0x93, 0x94, 0x95, 0x96, 0x97, 0x98, 0x99, 0x9a, 0xa2, 0xa3,
+    0xa4, 0xa5, 0xa6, 0xa7, 0xa8, 0xa9, 0xaa, 0xb2, 0xb3, 0xb4, 0xb5, 0xb6,
+    0xb7, 0xb8, 0xb9, 0xba, 0xc2, 0xc3, 0xc4, 0xc5, 0xc6, 0xc7, 0xc8, 0xc9,
+    0xca, 0xd2, 0xd3, 0xd4, 0xd5, 0xd6, 0xd7, 0xd8, 0xd9, 0xda, 0xe1, 0xe2,
+    0xe3, 0xe4, 0xe5, 0xe6, 0xe7, 0xe8, 0xe9, 0xea, 0xf1, 0xf2, 0xf3, 0xf4,
+    0xf5, 0xf6, 0xf7, 0xf8, 0xf9, 0xfa};
+static const uint8_t kAcChrBits[16] = {0, 2, 1, 2, 4, 4, 3, 4,
+                                       7, 5, 4, 4, 0, 1, 2, 0x77};
+static const uint8_t kAcChrVals[162] = {
+    0x00, 0x01, 0x02, 0x03, 0x11, 0x04, 0x05, 0x21, 0x31, 0x06, 0x12, 0x41,
+    0x51, 0x07, 0x61, 0x71, 0x13, 0x22, 0x32, 0x81, 0x08, 0x14, 0x42, 0x91,
+    0xa1, 0xb1, 0xc1, 0x09, 0x23, 0x33, 0x52, 0xf0, 0x15, 0x62, 0x72, 0xd1,
+    0x0a, 0x16, 0x24, 0x34, 0xe1, 0x25, 0xf1, 0x17, 0x18, 0x19, 0x1a, 0x26,
+    0x27, 0x28, 0x29, 0x2a, 0x35, 0x36, 0x37, 0x38, 0x39, 0x3a, 0x43, 0x44,
+    0x45, 0x46, 0x47, 0x48, 0x49, 0x4a, 0x53, 0x54, 0x55, 0x56, 0x57, 0x58,
+    0x59, 0x5a, 0x63, 0x64, 0x65, 0x66, 0x67, 0x68, 0x69, 0x6a, 0x73, 0x74,
+    0x75, 0x76, 0x77, 0x78, 0x79, 0x7a, 0x82, 0x83, 0x84, 0x85, 0x86, 0x87,
+    0x88, 0x89, 0x8a, 0x92, 0x93, 0x94, 0x95, 0x96, 0x97, 0x98, 0x99, 0x9a,
+    0xa2, 0xa3, 0xa4, 0xa5, 0xa6, 0xa7, 0xa8, 0xa9, 0xaa, 0xb2, 0xb3, 0xb4,
+    0xb5, 0xb6, 0xb7, 0xb8, 0xb9, 0xba, 0xc2, 0xc3, 0xc4, 0xc5, 0xc6, 0xc7,
+    0xc8, 0xc9, 0xca, 0xd2, 0xd3, 0xd4, 0xd5, 0xd6, 0xd7, 0xd8, 0xd9, 0xda,
+    0xe2, 0xe3, 0xe4, 0xe5, 0xe6, 0xe7, 0xe8, 0xe9, 0xea, 0xf2, 0xf3, 0xf4,
+    0xf5, 0xf6, 0xf7, 0xf8, 0xf9, 0xfa};
+
+struct HuffTable {
+  uint16_t code[256];
+  uint8_t len[256];
+};
+
+// Canonical code assignment (T.81 Annex C).
+static void build_huff(const uint8_t bits[16], const uint8_t* vals,
+                       int nvals, HuffTable* t) {
+  std::memset(t->len, 0, sizeof(t->len));
+  uint16_t code = 0;
+  int k = 0;
+  for (int l = 1; l <= 16; ++l) {
+    for (int i = 0; i < bits[l - 1]; ++i) {
+      const uint8_t v = vals[k++];
+      t->code[v] = code++;
+      t->len[v] = static_cast<uint8_t>(l);
+    }
+    code <<= 1;
+  }
+  (void)nvals;
+}
+
+struct BitWriter {
+  uint8_t* out;
+  int64_t cap, pos;
+  uint64_t acc;  // holds < 32 pending bits between put() calls
+  int nacc;
+  bool overflow;
+
+  void put_byte(uint8_t b) {
+    if (pos >= cap) { overflow = true; return; }
+    out[pos++] = b;
+  }
+  // Entropy-coding hot path: callers combine a Huffman code and its
+  // magnitude bits into ONE put of <= 27 bits (16 + 11). With the
+  // nacc < 32 entry invariant the 64-bit accumulator never overflows,
+  // and whole 32-bit gulps drain at once — a SWAR test finds the rare
+  // 0xFF needing stuffing, so the common case is one bounds check and
+  // a byteswapped 4-byte store per ~1.5 coefficients instead of
+  // per-byte shift/compare/bounds work.
+  inline void put(uint32_t value, int nbits) {
+    acc = (acc << nbits) | (value & ((1u << nbits) - 1));
+    nacc += nbits;
+    if (nacc >= 32) {
+      const uint32_t w = static_cast<uint32_t>(acc >> (nacc - 32));
+      nacc -= 32;
+      const uint32_t t = ~w;  // a 0xFF byte in w is a 0x00 byte in t
+      if (((t - 0x01010101u) & ~t & 0x80808080u) == 0 && pos + 4 <= cap) {
+        const uint32_t be = __builtin_bswap32(w);
+        std::memcpy(out + pos, &be, 4);
+        pos += 4;
+      } else {
+        for (int s = 24; s >= 0; s -= 8) {
+          const uint8_t b = static_cast<uint8_t>(w >> s);
+          put_byte(b);
+          if (b == 0xFF) put_byte(0x00);  // byte stuffing
+        }
+      }
+    }
+  }
+  void flush() {  // pad with 1s to a byte boundary, drain whole bytes
+    if (nacc & 7) put((1u << (8 - (nacc & 7))) - 1, 8 - (nacc & 7));
+    while (nacc >= 8) {
+      const uint8_t b = static_cast<uint8_t>(acc >> (nacc - 8));
+      put_byte(b);
+      if (b == 0xFF) put_byte(0x00);
+      nacc -= 8;
+    }
+  }
+};
+
+// Size category (number of magnitude bits) of a coefficient.
+static inline int bit_size(int v) {
+  const unsigned a = static_cast<unsigned>(v < 0 ? -v : v);
+  return a ? 32 - __builtin_clz(a) : 0;
+}
+
+// Separable float fDCT with orthonormal scaling folded into quantization
+// is overkill here; use the direct T.81 definition via a precomputed
+// cos matrix: F[u] = C(u)/2 * sum_x f[x] cos((2x+1)u*pi/16).
+struct DctConsts {
+  float c[8][8];  // c[u][x] = C(u)/2 * cos((2x+1) u pi / 16)
+  DctConsts() {
+    for (int u = 0; u < 8; ++u) {
+      const double kPi = 3.14159265358979323846;  // M_PI is POSIX-only
+      const double cu = (u == 0) ? (1.0 / std::sqrt(2.0)) : 1.0;
+      for (int x = 0; x < 8; ++x)
+        c[u][x] = static_cast<float>(
+            0.5 * cu * std::cos((2 * x + 1) * u * kPi / 16.0));
+    }
+  }
+};
+static const DctConsts kDct;
+
+static void fdct8x8(const float in[64], float out[64]) {
+  float tmp[64];
+  for (int y = 0; y < 8; ++y)         // rows
+    for (int u = 0; u < 8; ++u) {
+      float s = 0;
+      for (int x = 0; x < 8; ++x) s += kDct.c[u][x] * in[y * 8 + x];
+      tmp[y * 8 + u] = s;
+    }
+  for (int u = 0; u < 8; ++u)         // columns
+    for (int v = 0; v < 8; ++v) {
+      float s = 0;
+      for (int y = 0; y < 8; ++y) s += kDct.c[v][y] * tmp[y * 8 + u];
+      out[v * 8 + u] = s;
+    }
+}
+
+// Load an 8x8 block with edge clamping, level-shifted by -128.
+static void load_block(const uint8_t* plane, int h, int w, int y0, int x0,
+                       float out[64]) {
+  for (int y = 0; y < 8; ++y) {
+    const int sy = std::min(y0 + y, h - 1);
+    const uint8_t* row = plane + static_cast<int64_t>(sy) * w;
+    for (int x = 0; x < 8; ++x)
+      out[y * 8 + x] = static_cast<float>(row[std::min(x0 + x, w - 1)]) - 128.0f;
+  }
+}
+
+// fDCT + quantize + zigzag one block.
+static void block_coeffs(const uint8_t* plane, int h, int w, int y0, int x0,
+                         const uint16_t qtbl[64], int16_t zz[64]) {
+  float px[64], fq[64];
+  load_block(plane, h, w, y0, x0, px);
+  fdct8x8(px, fq);
+  for (int i = 0; i < 64; ++i) {
+    const int nat = kZigzag[i];
+    const float v = fq[nat] / static_cast<float>(qtbl[nat]);
+    zz[i] = static_cast<int16_t>(std::lround(v));
+  }
+}
+
+static void encode_block(BitWriter* bw, const int16_t zz[64], int* dc_pred,
+                         const HuffTable& dc, const HuffTable& ac) {
+  const int diff = zz[0] - *dc_pred;
+  *dc_pred = zz[0];
+  const int s = bit_size(diff);
+  // Code + magnitude as ONE put (<= 16 + 11 bits): halves the put()
+  // calls on the entropy-coding hot path.
+  const uint32_t dmag =
+      static_cast<uint32_t>(diff < 0 ? diff + (1 << s) - 1 : diff)
+      & ((1u << s) - 1);
+  bw->put((static_cast<uint32_t>(dc.code[s]) << s) | dmag, dc.len[s] + s);
+  int run = 0;
+  for (int i = 1; i < 64; ++i) {
+    if (zz[i] == 0) { ++run; continue; }
+    while (run > 15) {
+      bw->put(ac.code[0xF0], ac.len[0xF0]);  // ZRL
+      run -= 16;
+    }
+    const int sz = bit_size(zz[i]);
+    const int sym = (run << 4) | sz;
+    const uint32_t mag =
+        static_cast<uint32_t>(zz[i] < 0 ? zz[i] + (1 << sz) - 1 : zz[i])
+        & ((1u << sz) - 1);
+    bw->put((static_cast<uint32_t>(ac.code[sym]) << sz) | mag,
+            ac.len[sym] + sz);
+    run = 0;
+  }
+  if (run > 0) bw->put(ac.code[0x00], ac.len[0x00]);  // EOB
+}
+
+static void scale_qtbl(const int base[64], int quality, uint16_t out[64]) {
+  quality = std::max(1, std::min(100, quality));
+  const int scale = quality < 50 ? 5000 / quality : 200 - 2 * quality;
+  for (int i = 0; i < 64; ++i) {
+    const int q = (base[i] * scale + 50) / 100;
+    out[i] = static_cast<uint16_t>(std::max(1, std::min(255, q)));
+  }
+}
+
+static void put_marker(BitWriter* bw, uint8_t m) {
+  bw->put_byte(0xFF);
+  bw->put_byte(m);
+}
+
+static void put_u16(BitWriter* bw, int v) {
+  bw->put_byte(static_cast<uint8_t>(v >> 8));
+  bw->put_byte(static_cast<uint8_t>(v & 0xFF));
+}
+
+// SOI through SOS for the one stream layout both encoders emit: JFIF,
+// two DQTs, SOF0 4:2:0, the four Annex K.3 DHTs, 3-component scan.
+static void write_headers(BitWriter* bw, int h, int w,
+                          const uint16_t qlum[64], const uint16_t qchr[64]) {
+  put_marker(bw, 0xD8);  // SOI
+  put_marker(bw, 0xE0);  // APP0 / JFIF
+  put_u16(bw, 16);
+  const uint8_t jfif[14] = {'J', 'F', 'I', 'F', 0, 1, 1, 0, 0, 1, 0, 1, 0, 0};
+  for (uint8_t b : jfif) bw->put_byte(b);
+  for (int t = 0; t < 2; ++t) {  // DQT x2
+    put_marker(bw, 0xDB);
+    put_u16(bw, 67);
+    bw->put_byte(static_cast<uint8_t>(t));
+    const uint16_t* q = t == 0 ? qlum : qchr;
+    for (int i = 0; i < 64; ++i)
+      bw->put_byte(static_cast<uint8_t>(q[kZigzag[i]]));
+  }
+  put_marker(bw, 0xC0);  // SOF0
+  put_u16(bw, 17);
+  bw->put_byte(8);
+  put_u16(bw, h);
+  put_u16(bw, w);
+  bw->put_byte(3);
+  const uint8_t sof[9] = {1, 0x22, 0, 2, 0x11, 1, 3, 0x11, 1};
+  for (uint8_t b : sof) bw->put_byte(b);
+  struct {
+    uint8_t cls_id;
+    const uint8_t* bits;
+    const uint8_t* vals;
+    int n;
+  } dht[4] = {
+      {0x00, kDcLumBits, kDcVals, 12},
+      {0x10, kAcLumBits, kAcLumVals, 162},
+      {0x01, kDcChrBits, kDcVals, 12},
+      {0x11, kAcChrBits, kAcChrVals, 162},
+  };
+  for (const auto& d : dht) {
+    put_marker(bw, 0xC4);
+    put_u16(bw, 2 + 1 + 16 + d.n);
+    bw->put_byte(d.cls_id);
+    for (int i = 0; i < 16; ++i) bw->put_byte(d.bits[i]);
+    for (int i = 0; i < d.n; ++i) bw->put_byte(d.vals[i]);
+  }
+  put_marker(bw, 0xDA);  // SOS
+  put_u16(bw, 12);
+  bw->put_byte(3);
+  const uint8_t sos[6] = {1, 0x00, 2, 0x11, 3, 0x11};
+  for (uint8_t b : sos) bw->put_byte(b);
+  bw->put_byte(0);
+  bw->put_byte(63);
+  bw->put_byte(0);
+}
+
+}  // namespace jpg
+
+// y: [h, w] u8; cb, cr: [ceil(h/2), ceil(w/2)] u8 (JFIF 4:2:0 planes).
+// Writes a complete JFIF stream into out (capacity out_cap); *out_len
+// receives the byte count. Returns RPF_OK, RPF_ERR_ARGS, or 3 (overflow).
+int rpf_jpeg_encode_ycc420(const uint8_t* y, const uint8_t* cb,
+                           const uint8_t* cr, int h, int w, int quality,
+                           uint8_t* out, int64_t out_cap, int64_t* out_len) {
+  using namespace jpg;
+  if (!y || !cb || !cr || !out || !out_len || h <= 0 || w <= 0 ||
+      h > 65535 || w > 65535)  // SOF0 dimension fields are 16-bit
+    return RPF_ERR_ARGS;
+  const int ch = (h + 1) / 2, cw = (w + 1) / 2;
+
+  uint16_t qlum[64], qchr[64];
+  scale_qtbl(kQLum, quality, qlum);
+  scale_qtbl(kQChr, quality, qchr);
+  HuffTable dcl, dcc, acl, acc_;
+  build_huff(kDcLumBits, kDcVals, 12, &dcl);
+  build_huff(kDcChrBits, kDcVals, 12, &dcc);
+  build_huff(kAcLumBits, kAcLumVals, 162, &acl);
+  build_huff(kAcChrBits, kAcChrVals, 162, &acc_);
+
+  BitWriter bw{out, out_cap, 0, 0, 0, false};
+  write_headers(&bw, h, w, qlum, qchr);
+
+  const int mcu_rows = (h + 15) / 16, mcu_cols = (w + 15) / 16;
+  int pred_y = 0, pred_cb = 0, pred_cr = 0;
+  int16_t zz[64];
+  for (int my = 0; my < mcu_rows && !bw.overflow; ++my) {
+    for (int mx = 0; mx < mcu_cols; ++mx) {
+      for (int dy = 0; dy < 2; ++dy)
+        for (int dx = 0; dx < 2; ++dx) {
+          block_coeffs(y, h, w, my * 16 + dy * 8, mx * 16 + dx * 8, qlum, zz);
+          encode_block(&bw, zz, &pred_y, dcl, acl);
+        }
+      block_coeffs(cb, ch, cw, my * 8, mx * 8, qchr, zz);
+      encode_block(&bw, zz, &pred_cb, dcc, acc_);
+      block_coeffs(cr, ch, cw, my * 8, mx * 8, qchr, zz);
+      encode_block(&bw, zz, &pred_cr, dcc, acc_);
+    }
+  }
+  bw.flush();
+  put_marker(&bw, 0xD9);  // EOI
+  if (bw.overflow) return 3;
+  *out_len = bw.pos;
+  return RPF_OK;
+}
+
+}  // extern "C"

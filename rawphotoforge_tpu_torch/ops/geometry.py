@@ -109,6 +109,18 @@ def lens_distortion(r, g, b, distortion, extent=None):
     )
 
 
+def orient_exif(planes: torch.Tensor, orientation: int) -> torch.Tensor:
+    """Apply an EXIF orientation (1..8) to [C, H, W] planes so the stored
+    image displays upright (image.rs:559-608)."""
+    if orientation in (0, 1):
+        return planes
+    flips = {2: (2,), 3: (1, 2), 4: (1,), 5: (), 6: (1,), 7: (1, 2), 8: (2,)}
+    if orientation not in flips:
+        raise ValueError(f"invalid EXIF orientation {orientation}")
+    out = torch.flip(planes, flips[orientation]) if flips[orientation] else planes
+    return out.transpose(1, 2) if orientation >= 5 else out
+
+
 def resize_long_edge_shape(h: int, w: int, target_long_edge: int) -> tuple[int, int]:
     """Destination shape of the long-edge resize (web/main.ts:968-977),
     rounding the short edge half away from zero like JS Math.round."""

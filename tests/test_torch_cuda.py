@@ -124,3 +124,45 @@ def test_editor_on_the_card_matches_cpu_session(dev):
         ed.set_curve(SATURATION, [0, 65535], [30000, 36000], mask_name="r")
     for level in (FULL, LOW):
         _close(eds[0].apply(level).cpu(), eds[1].apply(level))
+
+
+RAW_CAM = np.array([[1.6, -0.4, -0.2], [-0.3, 1.5, -0.2], [0.0, -0.5, 1.5]],
+                   np.float32)
+
+
+@pytest.mark.parametrize("pattern,h,w", [
+    ("RGGB", 64, 512), ("GBRG", 50, 300), ("BGGR", 37, 150), ("GRBG", 64, 256),
+    ("XTRANS", 96, 768), ("XTRANS", 100, 700)])
+@pytest.mark.parametrize("sharpen,m", [(0.0, 1), (0.8, 3)])
+def test_raw_kernel_bit_identical_to_twin(dev, pattern, h, w, sharpen, m):
+    from rawphotoforge_tpu_torch.kernels import raw_pipeline as rp
+
+    rng = np.random.default_rng(5)
+    mosaic = torch.from_numpy(rng.random((h, w), dtype=np.float32)).to(dev)
+    params = pack_params(_params()[:m], extent=(h, w), device=dev)
+    _, masks = _inputs(dev, h, w, m)
+    before = rp.LAUNCHES
+    out = rp.raw_develop_fused(mosaic, (1.8, 1.0, 1.4), RAW_CAM, params,
+                               np.float32(sharpen), pattern=pattern, masks=masks)
+    torch.cuda.synchronize()
+    assert rp.LAUNCHES == before + 1
+    ref = rp.raw_develop_fused_ref(mosaic, (1.8, 1.0, 1.4), RAW_CAM, params,
+                                   np.float32(sharpen), pattern=pattern,
+                                   masks=masks)
+    assert torch.equal(out, ref)
+
+
+def test_raw_kernel_never_runs_the_twin_for_cuda(dev, monkeypatch):
+    from rawphotoforge_tpu_torch.kernels import raw_pipeline as rp
+
+    def refuse(*a, **k):
+        raise AssertionError("the twin ran for a CUDA tensor")
+
+    monkeypatch.setattr(rp, "raw_develop_fused_ref", refuse)
+    mosaic = torch.rand((48, 96), device=dev)
+    params = pack_params([EditParameters()], device=dev)
+    rp.raw_develop_fused(mosaic, (1.0, 1.0, 1.0), np.eye(3), params,
+                         np.float32(0.0), pattern="XTRANS")
+    with pytest.raises(ValueError, match="float32"):
+        rp.raw_develop_fused(mosaic.double(), (1.0, 1.0, 1.0), np.eye(3),
+                             params, np.float32(0.0))

@@ -2,6 +2,7 @@
 masks and preset JSON; plus the session behaviours (masks, crop, presets,
 caches, export, the device rule) at small sizes on the CPU."""
 
+import io
 import json
 
 import numpy as np
@@ -220,9 +221,18 @@ def test_save_and_reopen(rng, tmp_path):
 
 
 def test_large_jpeg_export_names_the_missing_encoder():
-    planes = torch.zeros((3, 2048, 2048))
-    with pytest.raises(image_io.ImageIOError, match="ROADMAP"):
-        image_io.encode_image(planes, "JPEG")
+    """A 4 Mpx JPEG export takes io/jpegenc's dense wire (the JAX package's
+    sparse wires are not ported), and decodes at its size."""
+    from PIL import Image
+
+    from rawphotoforge_tpu_torch.io import jpegenc
+
+    yy = torch.linspace(0.0, 1.0, 2048)[:, None].expand(2048, 2048)
+    planes = torch.stack([yy, yy.T, 0.5 * (yy + yy.T)])
+    body = image_io.encode_image(planes, "JPEG", quality=90)
+    assert body == jpegenc.encode_jpeg(planes, quality=90)
+    with Image.open(io.BytesIO(body)) as im:
+        assert im.size == (2048, 2048)
 
 
 def test_device_rule(rng):
