@@ -10,8 +10,14 @@ Phases (any failure raises, and the script exits non-zero):
     develop kernel and the RAW kernel (nvcc, sm_90a) and of the native
     host library (g++), with build seconds and the ptxas register/spill
     report;
- 2. the kernel held against its plain torch twin at 48x160, 37x150 and
-    4096x6016 for every variant, the shortcut variants' bit-identity and
+ 2a. the edit stack's device functions against their torch twins, bit for
+    bit and exhaustively: the OKLab cube root over every f32 in [0, 2],
+    the sRGB OETF over every f32 in [0, 64], and the curve rescales (a
+    multiply and a correction) over all 65536 whole inputs;
+ 2. the develop kernel held against its plain torch twin, bit for bit:
+    curve rows of S = 1, 2, 4, 8 and 16 segments at 48x160 and 37x150, and
+    every variant at 48x160, 37x150, 4096x6013 (a width that is not a
+    multiple of 4) and 4096x6016; the shortcut variants' bit-identity and
     identity_oklch's 3e-3 bound;
  3. the interactive develop frame at full size: a seeded 4000x6000 linear
     image in a PhotoEditor on the card with the benchmark edit, geometry,
@@ -23,22 +29,33 @@ Phases (any failure raises, and the script exits non-zero):
     bounds, the twin's time, and the editor's render latency per level;
  5. the one-pass RAW kernel held against its plain torch twin, bit for
     bit: the four Bayer patterns at 64x512, 50x300 and 37x150 and X-Trans
-    at 96x768 and 100x700, each with M=1 / M=3 (u8 masks), sharpen 0 /
-    0.8, the default-curve shortcuts (bit-identical to the general kernel)
-    and identity_oklch (3e-3 bound), plus one full-size frame of each CFA;
+    at 96x768, 100x700, 12x12 and 61x133, each with
+    M=1 / M=3 (u8 masks), sharpen 0 / 0.8, the default-curve shortcuts
+    (bit-identical to the general kernel) and identity_oklch (3e-3
+    bound), plus one full-size frame of each CFA;
  6. the RAW main path: a 24 MP RGGB lossless-JPEG DNG and a 26 MP X-Trans
     DNG (orientation 6) written with the port's write_dng, developed by
-    `cli batch` on the card (exactly one RAW-kernel launch per image, no
-    twin call); each pre-JPEG render held against the composed path on the
-    card (demosaic -> unsharp -> develop kernel) on the trimmed interior;
-    each JPEG byte for byte the encode of that render oriented on the
-    card, whose YCbCr 4:2:0 u8 planes match the host's numpy rotation and
-    YCbCr within one level;
+    `cli batch` on the card (exactly one launch of each RAW kernel, Bayer
+    and X-Trans, no twin call); each pre-JPEG render held against the
+    composed path on the card (demosaic -> unsharp -> develop kernel) on
+    the trimmed interior; each JPEG byte for byte the encode of that
+    render oriented on the card, whose YCbCr 4:2:0 u8 planes match the
+    host's numpy rotation and YCbCr within one level;
  7. CUDA-event timings of the RAW kernel (Bayer 24 MP and 45.4 MP,
-    X-Trans 26 MP; batch flags and full curves) beside its bounds and the
-    twin's time; the batch's MPix/s end to end, its per-image stage times
-    (each stage's function wrapped here between two synchronizes) and the
-    card's idle share under the profiler.
+    X-Trans 26 MP; batch flags and full curves)
+    beside its bounds and the twin's time; the batch's MPix/s end to end,
+    its per-image stage times (each stage's function wrapped here between
+    two synchronizes) and the card's idle share under the profiler.
+
+Two other modes print only measurements:
+
+    python3 chip_smoke.py --kernel-times   # one JSON line of kernel times
+    python3 chip_smoke.py --develop-ab     # the develop kernel with one
+                                           # stage of its edit stack cut out
+
+A copy of this script placed in another checkout (for example the parent
+commit unpacked under build/) times that checkout's kernels with
+--kernel-times on the same cases; run the two in turns in one call.
 
 The line before the last is the kernel table as JSON; the last line is
 {"ok": true, "device": {...}}. Without a card, or without the rest of the
@@ -230,6 +247,89 @@ def variants(h, w, dev, rng):
     ], ones_f32
 
 
+def _f32_bits(x):
+    return int(np.float32(x).view(np.int32))
+
+
+def sweep_device_fn(dev, name, twin, lo, hi, chunk=1 << 26):
+    """fused.device_fn(name) against ``twin`` on every f32 from ``lo`` to
+    ``hi`` (both included, 0 <= lo <= hi), chunk by chunk on the card.
+    Returns (values, values whose bit patterns differ)."""
+    import torch
+
+    from rawphotoforge_tpu_torch.kernels import fused
+
+    a, b = _f32_bits(lo), _f32_bits(hi)
+    total = differ = 0
+    for s in range(a, b + 1, chunk):
+        x = torch.arange(s, min(b + 1, s + chunk), dtype=torch.int32,
+                         device=dev).view(torch.float32)
+        got = fused.device_fn(name, x)
+        ref = twin(x)
+        differ += int((got.view(torch.int32) != ref.view(torch.int32)).sum())
+        total += x.numel()
+        del x, got, ref
+    return total, differ
+
+
+def phase_device_functions(dev, log):
+    """Phase 2a: the edit stack's OKLab cube root, its OETF and the two
+    divisions it now takes as a multiply and a correction, exhaustively
+    against their torch twins, bit for bit."""
+    import torch
+
+    from rawphotoforge_tpu_torch.core import color
+    from rawphotoforge_tpu_torch.core.numerics import div
+    from rawphotoforge_tpu_torch.kernels import fused, ktrig
+
+    for name, twin, lo, hi, what in (
+            ("cbrt_pow", color._cbrt, 0.0, 2.0, "every f32 in [0, 2]"),
+            ("srgb_oetf", ktrig.srgb_oetf, 0.0, 1.0, "every f32 in [0, 1]"),
+            ("srgb_oetf", ktrig.srgb_oetf, 1.0, 64.0, "every f32 in [1, 64]")):
+        n, bad = sweep_device_fn(dev, name, twin, lo, hi)
+        log(f"phase 2a: {name} vs its torch twin over {what}: {n} values, "
+            f"{bad} differ")
+        check(bad == 0, f"{name}: {bad} of {n} values differ from the twin")
+    whole = torch.arange(65536, dtype=torch.float32, device=dev)
+    for name, d in (("div_65535", 65535.0), ("div_32767_5", 32767.5)):
+        got = fused.device_fn(name, whole)
+        bad = int((got.view(torch.int32) != div(whole, d).view(torch.int32)).sum())
+        log(f"phase 2a: {name} (multiply + one residual correction) vs the "
+            f"IEEE quotient over all 65536 whole y in [0, 65535]: {bad} differ")
+        check(bad == 0, f"{name}: {bad} quotients differ")
+    torch.cuda.empty_cache()
+
+
+def curve_rows(dev, s):
+    """A 2-mask edit whose packed curve rows have S = ``s`` segments (S = 1:
+    the first segment of an S = 2 row, extended over the whole domain)."""
+    import dataclasses
+
+    from rawphotoforge_tpu_torch.core.params import (
+        BRIGHTNESS, HUE, LIGHTNESS, EditParameters, pack_params)
+
+    n = {1: 2, 2: 2, 4: 3, 8: 7, 16: 15}[s]  # control points that pack into s
+    xs = np.linspace(0, 65535, n).round().astype(int).tolist()
+    rng = np.random.default_rng(SEED + 10 + s)
+    ys = np.sort(rng.integers(0, 65536, n)).tolist()
+    main = EditParameters()
+    main.set_tone(exposure=0.5, contrast=20)
+    main.set_vignette(35)
+    main.set_curve(BRIGHTNESS, xs, ys)
+    main.set_curve(HUE, xs, rng.integers(0, 65536, n).tolist())
+    reg = EditParameters()
+    reg.set_tone(exposure=-0.3)
+    reg.set_curve(LIGHTNESS, xs, rng.integers(20000, 45000, n).tolist())
+    params = pack_params([main, reg], device=dev)
+    if s == 1:
+        params = dataclasses.replace(
+            params, breaks=params.breaks[..., :1].contiguous(),
+            coeffs=params.coeffs[..., :1, :].contiguous())
+    check(params.breaks.shape[-1] == s, f"curve rows packed S="
+          f"{params.breaks.shape[-1]}, want {s}")
+    return params
+
+
 def phase_kernel_vs_twin(dev, log):
     import torch
 
@@ -237,13 +337,28 @@ def phase_kernel_vs_twin(dev, log):
 
     rng = np.random.default_rng(SEED)
     worst = {}
-    for h, w in ((48, 160), (37, 150), BUCKET_HW):
+    # Every S a curve row can pack into, on two small shapes (the second
+    # with a width that is not a multiple of 4), u8 regional masks.
+    for h, w in ((48, 160), (37, 150)):
+        planes = torch.from_numpy(rng.random((3, h, w), dtype=np.float32)).to(dev)
+        masks = torch.ones((2, h, w), dtype=torch.uint8, device=dev)
+        masks[1, :, ::3] = 0
+        for s in (1, 2, 4, 8, 16):
+            params = curve_rows(dev, s)
+            out = fused.develop_post_geo_fused(planes, params, masks)
+            torch.cuda.synchronize()
+            bit_identical(out, fused.develop_post_geo_fused_ref(planes, params, masks),
+                          f"S={s} {h}x{w} kernel vs twin")
+        log(f"phase 2: curve rows S=1, 2, 4, 8, 16 at {h}x{w} (M=2, u8 "
+            f"masks): kernel == twin bit for bit")
+    for h, w in ((48, 160), (37, 150), (BUCKET_HW[0], BUCKET_HW[1] - 3), BUCKET_HW):
         planes, cases, ones_f32 = variants(h, w, dev, rng)
         for name, params, masks, flags, partner in cases:
             out = fused.develop_post_geo_fused(planes, params, masks, **flags)
             torch.cuda.synchronize()
             ref = fused.develop_post_geo_fused_ref(planes, params, masks, **flags)
             err = compare(out, ref, what=f"{name} {h}x{w} kernel vs twin")
+            bit_identical(out, ref, f"{name} {h}x{w} kernel vs twin")
             worst[name] = max(worst.get(name, 0.0), err)
             note = ""
             if partner == "explicit_ones":
@@ -263,8 +378,8 @@ def phase_kernel_vs_twin(dev, log):
                 check(dev_max < 3e-3, f"identity_oklch {h}x{w}: {dev_max:.3e} "
                       "from the full path (bound 3e-3)")
                 note = f"; {dev_max:.3e} from the full OKLCH path (bound 3e-3)"
-            log(f"phase 2: {name} {h}x{w}: kernel vs twin max abs err "
-                f"{err:.3e}{note}")
+            log(f"phase 2: {name} {h}x{w}: kernel == twin bit for bit "
+                f"(max abs err {err:.3e}){note}")
         del planes, cases
         torch.cuda.empty_cache()
     return worst
@@ -426,16 +541,29 @@ def time_events(fn, reps, warm=2):
     return start.elapsed_time(end) / reps
 
 
-def phase_timing(dev, ed, card, log):
+def m4_masks(dev):
+    """Phase 3's M=4 u8 mask stack at FULL on the bucket grid, as the editor
+    builds it: row 0 all ones on the photo, rows 1..3 the regions' logits
+    >= 0, zero in the padding."""
+    import torch
+
+    (h, w), (hb, wb) = PHOTO_HW, BUCKET_HW
+    masks = np.zeros((4, hb, wb), np.uint8)
+    masks[0, :h, :w] = 1
+    for k, logit in enumerate(region_logits(h, w), start=1):
+        masks[k, :h, :w] = logit >= 0.0
+    return torch.from_numpy(masks).to(dev)
+
+
+def develop_cases(dev):
+    """Phase 4's timed develop-kernel calls on the 24 MP bucket grid:
+    (planes, [(name, param list, masks, flags)])."""
     import torch
 
     from rawphotoforge_tpu_torch.core.params import (
-        BRIGHTNESS, EditParameters, default_curve_slots, pack_params)
-    from rawphotoforge_tpu_torch.engine.editor import FULL, LOW, MID
-    from rawphotoforge_tpu_torch.kernels import fused
+        BRIGHTNESS, EditParameters, default_curve_slots)
 
     hb, wb = BUCKET_HW
-    hw = hb * wb
     rng = np.random.default_rng(SEED + 2)
     planes = torch.from_numpy(rng.random((3, hb, wb), dtype=np.float32) ** 2).to(dev)
     full = EditParameters()
@@ -449,23 +577,37 @@ def phase_timing(dev, ed, card, log):
     drag.set_vignette(40)
     drag.set_curve(BRIGHTNESS, [0, 16000, 40000, 65535], [1000, 20000, 46000, 65535])
     stack = [full, *regional_edits()]
-    m4_masks = ed._masks_at(FULL)  # the editor's own u8 stack
-    coverage = [1.0] + [float(m4_masks[k].float().mean()) for k in range(1, 4)]
     one = dict(main_mask_all_ones=True)
-    cases = [
+    return planes, [
         ("full_stack", [full], None, one),
         ("slider_only", [tone], None, dict(one, default_bright_curves=True,
                                            default_oklch_curves=True,
                                            identity_oklch=True)),
         ("tone_curve_drag", [drag], None, dict(one, default_oklch_curves=True,
                                                identity_oklch=True)),
-        ("m4_regional", stack, m4_masks,
+        ("m4_regional", stack, m4_masks(dev),
          dict(one, default_curve_slots=default_curve_slots(stack))),
     ]
+
+
+def phase_timing(dev, ed, card, log):
+    import torch
+
+    from rawphotoforge_tpu_torch.core.params import pack_params
+    from rawphotoforge_tpu_torch.engine.editor import FULL, LOW, MID
+    from rawphotoforge_tpu_torch.kernels import fused
+
+    hb, wb = BUCKET_HW
+    hw = hb * wb
+    planes, cases = develop_cases(dev)
     results = {}
     for name, plist, masks, flags in cases:
         params = pack_params(plist, extent=PHOTO_HW, device=dev)
         m, s = len(plist), params.breaks.shape[-1]
+        if masks is not None:
+            check(torch.equal(masks[1:], ed._masks_at(FULL)[1:]),
+                  "phase 4's regional masks differ from the editor's")
+            coverage = [1.0] + [float(masks[k].float().mean()) for k in range(1, m)]
         slots = fused._slot_table(m, flags.get("default_bright_curves", False),
                                   flags.get("default_oklch_curves", False),
                                   flags.get("default_curve_slots"))
@@ -554,9 +696,11 @@ def phase_raw_kernel_vs_twin(dev, log):
     shapes = [(p, hw) for p in ("RGGB", "BGGR", "GRBG", "GBRG")
               for hw in ((64, 512), (50, 300), (37, 150))]
     shapes += [("XTRANS", (96, 768)), ("XTRANS", (100, 700)),
+               ("XTRANS", (12, 12)), ("XTRANS", (61, 133)),
                ("RGGB", BAYER_HW), ("XTRANS", XTRANS_HW)]
-    worst = 0.0
+    worst = {"bayer": 0.0, "xtrans": 0.0}
     for pattern, (h, w) in shapes:
+        xt = pattern == "XTRANS"
         mosaic = torch.from_numpy(rng.random((h, w), dtype=np.float32)).to(dev)
         masks = np.zeros((3, h, w), np.uint8)
         masks[0] = 1
@@ -577,22 +721,22 @@ def phase_raw_kernel_vs_twin(dev, log):
         notes = []
         for name, params, mk, amt, flags in cases:
             args = (mosaic, wb, cam, params, np.float32(amt))
+            what = f"RAW {pattern} {h}x{w} {name}"
             out = rp.raw_develop_fused(*args, pattern=pattern, masks=mk, **flags)
             torch.cuda.synchronize()
             ref = rp.raw_develop_fused_ref(*args, pattern=pattern, masks=mk,
                                            **flags)
-            err = float((out - ref).abs().max().item())
-            worst = max(worst, err)
-            bit_identical(out, ref, f"RAW {pattern} {h}x{w} {name} kernel vs twin")
+            kind = "xtrans" if pattern == "XTRANS" else "bayer"
+            worst[kind] = max(worst[kind], float((out - ref).abs().max().item()))
+            bit_identical(out, ref, f"{what} kernel vs twin")
             if name == "shortcuts":
                 general = rp.raw_develop_fused(*args, pattern=pattern)
-                bit_identical(out, general, f"RAW {pattern} {h}x{w} shortcuts "
-                              "vs general kernel")
+                bit_identical(out, general, f"{what} shortcuts vs general kernel")
             if name == "identity_oklch":
                 general = rp.raw_develop_fused(*args, pattern=pattern, **shortcut)
                 dev_max = float((out - general).abs().max().item())
-                check(dev_max < 3e-3, f"RAW identity_oklch {pattern} {h}x{w}: "
-                      f"{dev_max:.3e} from the full path (bound 3e-3)")
+                check(dev_max < 3e-3, f"{what}: {dev_max:.3e} from the full "
+                      "path (bound 3e-3)")
                 notes.append(f"identity_oklch {dev_max:.3e} from the full path")
         log(f"phase 5: RAW {pattern} {h}x{w}: kernel == twin bit for bit in "
             f"{len(cases)} cases (M=1/M=3 u8, sharpen 0/0.8, shortcuts "
@@ -676,7 +820,7 @@ def phase_raw_main_path(dev, log):
         return real_twin(*a, **k)
 
     rp.raw_develop_fused_ref = counted_twin
-    rp.LAUNCHES = 0  # the RAW main path's run starts here
+    rp.KERNEL_LAUNCHES = dict.fromkeys(rp.KERNEL_LAUNCHES, 0)  # run starts
     fused.LAUNCHES = 0
     t0 = time.perf_counter()
     try:
@@ -684,15 +828,16 @@ def phase_raw_main_path(dev, log):
         torch.cuda.synchronize()
     finally:
         rp.raw_develop_fused_ref = real_twin
-    launches = rp.LAUNCHES  # the RAW main path's run ends here
+    per_kernel = dict(rp.KERNEL_LAUNCHES)  # the RAW main path's run ends here
+    launches = sum(per_kernel.values())
     t_main = time.perf_counter() - t0
     check(rc == 0, f"cli batch exited {rc}")
-    check(launches == len(files), f"RAW kernel launched {launches} times for "
-          f"{len(files)} images (want one each)")
+    check(per_kernel == {"bayer_kernel": 1, "xtrans_kernel": 1},
+          f"RAW launches by kernel {per_kernel} (want one each)")
     check(twin_calls[0] == 0, f"the RAW twin ran {twin_calls[0]} times on the "
           "main path")
     log(f"phase 6: RAW main path (cli batch of {len(files)} DNGs on the card) in "
-        f"{t_main:.2f} s; RAW kernel launches {launches}, twin calls "
+        f"{t_main:.2f} s; RAW kernel launches {launches} {per_kernel}, twin calls "
         f"{twin_calls[0]}, develop kernel launches {fused.LAUNCHES}")
 
     flags = _parse_flags(RAW_FLAGS)
@@ -759,7 +904,7 @@ def phase_raw_main_path(dev, log):
             f"{hwc.shape[0] * hwc.shape[1] * 3 // 2} samples differ")
         del render
         torch.cuda.empty_cache()
-    return launches, in_dir, tmp
+    return per_kernel, in_dir, tmp
 
 
 def raw_op_count(pattern, sharpen_on):
@@ -823,32 +968,41 @@ def staged_batch(in_dir, out_dir, dev):
     return wall_ms, stage_ms
 
 
+RAW_FRAMES = (("RGGB", BAYER_HW), ("RGGB", NORTH_STAR_HW), ("XTRANS", XTRANS_HW))
+
+
+def raw_variants():
+    """Phase 7's edits per frame: (name, edit, flags)."""
+    tone, full, _ = raw_edits()
+    return (("batch_flags", tone, dict(default_bright_curves=True,
+                                       default_oklch_curves=True,
+                                       identity_oklch=True)),
+            ("full_curves", full, {}))
+
+
+def raw_args(dev, mosaic, edit):
+    from rawphotoforge_tpu_torch.core.params import pack_params
+
+    h, w = mosaic.shape
+    params = pack_params([edit], extent=(h, w), build_luts=False, device=dev)
+    return (mosaic, (1.9, 1.0, 1.5), raw_cam(), params,
+            np.float32(30 / 100.0 * 2.0))
+
+
 def phase_raw_timing(dev, card, in_dir, tmp, log):
     import torch
 
-    from rawphotoforge_tpu_torch.core.params import (
-        default_curve_slots, pack_params)
-    from rawphotoforge_tpu_torch.kernels import fused, raw_pipeline as rp
+    from rawphotoforge_tpu_torch.core.params import default_curve_slots
+    from rawphotoforge_tpu_torch.kernels import raw_pipeline as rp
 
     rng = np.random.default_rng(SEED + 5)
-    tone, full, _ = raw_edits()
-    cam = raw_cam()
-    wb = (1.9, 1.0, 1.5)
-    amt = np.float32(30 / 100.0 * 2.0)
     results = {}
-    for pattern, (h, w) in (("RGGB", BAYER_HW), ("RGGB", NORTH_STAR_HW),
-                            ("XTRANS", XTRANS_HW)):
+    for pattern, (h, w) in RAW_FRAMES:
         hw = h * w
         mosaic = torch.from_numpy(rng.random((h, w), dtype=np.float32)).to(dev)
-        for variant, edit, flags in (
-                ("batch_flags", tone, dict(default_bright_curves=True,
-                                           default_oklch_curves=True,
-                                           identity_oklch=True)),
-                ("full_curves", full, {})):
-            params = pack_params([edit], extent=(h, w), build_luts=False,
-                                 device=dev)
-            s = params.breaks.shape[-1]
-            args = (mosaic, wb, cam, params, amt)
+        for variant, edit, flags in raw_variants():
+            args = raw_args(dev, mosaic, edit)
+            s = args[3].breaks.shape[-1]
             ms = time_events(lambda: rp.raw_develop_fused(
                 *args, pattern=pattern, **flags), reps=20)
             plain = time_events(lambda: rp.raw_develop_fused_ref(
@@ -920,6 +1074,151 @@ def phase_raw_timing(dev, card, in_dir, tmp, log):
     return results
 
 
+def median_time(fn, windows=5, reps=20):
+    """The median over ``windows`` CUDA-event windows of ``reps`` launches."""
+    return sorted(time_events(fn, reps=reps) for _ in range(windows))[windows // 2]
+
+
+def table_packed_once(fused, call):
+    """median_time of ``call`` with ``fused.pack_table`` answering every
+    call with the table it packed at the first: the develop wrapper's
+    launch as it ships, without its per-call table packing."""
+    real, memo = fused.pack_table, []
+
+    def once(*a, **k):
+        if not memo:
+            memo.append(real(*a, **k))
+        return memo[0]
+
+    fused.pack_table = once
+    try:
+        return median_time(call)
+    finally:
+        fused.pack_table = real
+
+
+def kernel_times(dev, card):
+    """Only the kernels' times of phases 4 and 7 (median of 5 windows of 20
+    launches; no bounds, no twin), from the package beside this file: a
+    copy of this script in another checkout times that checkout's kernels
+    on the same cases. Each develop case is timed once more with its table
+    packed once (``..._table_packed_once``)."""
+    import torch
+
+    from rawphotoforge_tpu_torch.core.params import pack_params
+    from rawphotoforge_tpu_torch.kernels import fused, raw_pipeline as rp
+
+    times = {}
+    planes, cases = develop_cases(dev)
+    for name, plist, masks, flags in cases:
+        params = pack_params(plist, extent=PHOTO_HW, device=dev)
+
+        def call():
+            return fused.develop_post_geo_fused(planes, params, masks, **flags)
+
+        times[f"develop_{name}"] = median_time(call)
+        times[f"develop_{name}_table_packed_once"] = table_packed_once(fused, call)
+    del planes, cases
+    rng = np.random.default_rng(SEED + 5)
+    for pattern, (h, w) in RAW_FRAMES:
+        mosaic = torch.from_numpy(rng.random((h, w), dtype=np.float32)).to(dev)
+        for variant, edit, flags in raw_variants():
+            args = raw_args(dev, mosaic, edit)
+            times[f"raw_{pattern}_{w}x{h}_{variant}"] = median_time(
+                lambda: rp.raw_develop_fused(*args, pattern=pattern, **flags))
+        del mosaic
+        torch.cuda.empty_cache()
+    return {"card": card, "root": ROOT, "ms": times}
+
+
+# --develop-ab: since no profiler runs on the card's machine, the develop
+# kernel built from a copy of csrc/ with one stage of the edit stack cut out
+# (wrong output; its time tells the stage's share): the curve evaluation (a
+# curve returns its input), the OKLab cube roots, the OETF's power, atan2's
+# divisions, the vignette. Each cut replaces an exact line of csrc/, and the
+# mode fails when that line is no longer there.
+_AB_OETF = "RPF_F(1.055) * exp2f(log2f(fmaxf(c, 0.0f)) * RPF_F(1.0 / 2.4))"
+_AB_CBRT = "return powf(fmaxf(x, 0.0f), RPF_F(1.0 / 3.0));"
+_AB_CURVE = ("  const float u = clampf(floorf(v * kLutMax), 0.0f, kLutMax);\n"
+             "  const float y = clampf(floorf(eval_curve(u, kn, co, S)), 0.0f, 65535.0f);")
+AB_VARIANTS = {
+    "shipped": [],
+    "without_curves": [(_AB_CURVE, "  const float y = v;")],
+    "without_cube_root": [(_AB_CBRT, "return x;")],
+    "without_oetf_power": [(_AB_OETF, "c")],
+    "without_atan2_divisions": [
+        ("  const float t = lo / fmaxf(hi, RPF_F(1e-30));", "  const float t = lo * hi;"),
+        ("  const float tr = hi ? (t - 1.0f) / (t + 1.0f) : t;", "  const float tr = hi ? t - 1.0f : t;")],
+    "without_vignette": [("  if (strength == 0.0f) return;", "  return;")],
+}
+
+
+def develop_ab(dev, card, log, rounds=3):
+    """Times the develop kernel built with each of AB_VARIANTS on phase 4's
+    cases, the builds in turns (A B C ... C B A), beside each one's largest
+    deviation from the shipped build."""
+    import ctypes
+    import pathlib
+
+    import torch
+
+    from rawphotoforge_tpu_torch.core.params import pack_params
+    from rawphotoforge_tpu_torch.kernels import cuda_build, fused
+
+    fused.library()
+    shipped = fused._LIB
+    procs = {}
+    for name, subs in AB_VARIANTS.items():
+        src = pathlib.Path(cuda_build.BUILD_DIR) / "ab" / name
+        src.mkdir(parents=True, exist_ok=True)
+        texts = {f.name: f.read_text() for f in cuda_build.CSRC.iterdir()}
+        for a, b in subs:
+            check(any(a in t for t in texts.values()),
+                  f"--develop-ab: {a!r} is not in csrc/")
+            texts = {n: t.replace(a, b) for n, t in texts.items()}
+        for n, t in texts.items():
+            (src / n).write_text(t)
+        procs[name] = (src / "lib.so", subprocess.Popen(
+            [cuda_build._nvcc(), *cuda_build.NVCC_FLAGS, "-o", str(src / "lib.so"),
+             str(src / "develop.cu")], stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True))
+    libs = {}
+    for name, (so, p) in procs.items():
+        out = p.communicate()[0]
+        check(p.returncode == 0, f"--develop-ab: {name} did not build:\n{out}")
+        lib = ctypes.CDLL(str(so))
+        lib.rpf_develop_launch.argtypes = shipped.rpf_develop_launch.argtypes
+        lib.rpf_develop_launch.restype = ctypes.c_int
+        libs[name] = lib
+    planes, cases = develop_cases(dev)
+    try:
+        for case, plist, masks, flags in cases:
+            params = pack_params(plist, extent=PHOTO_HW, device=dev)
+
+            def call():
+                return fused.develop_post_geo_fused(planes, params, masks, **flags)
+
+            times = {k: [] for k in libs}
+            outs = {}
+            order = list(libs) + list(reversed(libs))
+            for _ in range(rounds):
+                for k in order:
+                    fused._LIB = libs[k]
+                    times[k].append(time_events(call, reps=20))
+            for k in libs:
+                fused._LIB = libs[k]
+                outs[k] = call()
+            torch.cuda.synchronize()
+            for k in libs:
+                ts = sorted(times[k])
+                dev_max = (outs[k] - outs["shipped"]).abs().max().item()
+                log(f"develop-ab: {case}: {k}: median {ts[len(ts) // 2]:.4f} ms "
+                    f"(min {ts[0]:.4f}, max {ts[-1]:.4f}; {len(ts)} windows of 20 "
+                    f"launches); max abs {dev_max:.3e} from shipped [{card}]")
+    finally:
+        fused._LIB = shipped
+
+
 def main() -> int:
     try:
         import torch
@@ -964,6 +1263,13 @@ def main() -> int:
             if "registers" in line or "spill" in line or "error" in line.lower():
                 log(f"phase 1: ptxas: {line.strip()}")
 
+    if "--kernel-times" in sys.argv:
+        print(json.dumps(kernel_times(dev, card)))
+        return 0
+    if "--develop-ab" in sys.argv:
+        develop_ab(dev, card, log)
+        return 0
+    phase_device_functions(dev, log)
     worst = phase_kernel_vs_twin(dev, log)
     ed, launches, _ = phase_main_path(dev, log)
     timing = phase_timing(dev, ed, card, log)
@@ -975,32 +1281,23 @@ def main() -> int:
     shutil.rmtree(raw_tmp, ignore_errors=True)
 
     main_case = timing["m4_regional"]
-    raw_case = raw_timing[f"RGGB_{BAYER_HW[1]}x{BAYER_HW[0]}_batch_flags"]
+    bayer_case = raw_timing[f"RGGB_{BAYER_HW[1]}x{BAYER_HW[0]}_batch_flags"]
+    xtrans_case = raw_timing[f"XTRANS_{XTRANS_HW[1]}x{XTRANS_HW[0]}_batch_flags"]
+    raw_src = "rawphotoforge_tpu_torch/csrc/raw_develop.cu"
+    raw_tpu = "rawphotoforge_tpu/kernels/raw_pipeline.py:485"
+    rows = [("develop_post_geo_fused", "rawphotoforge_tpu_torch/csrc/develop.cu",
+             "rawphotoforge_tpu/kernels/fused.py:488", launches,
+             max(worst.values()), main_case),
+            ("raw_develop_fused/bayer_kernel", raw_src, raw_tpu,
+             raw_launches["bayer_kernel"], raw_worst["bayer"], bayer_case),
+            ("raw_develop_fused/xtrans_kernel", raw_src, raw_tpu,
+             raw_launches["xtrans_kernel"], raw_worst["xtrans"], xtrans_case)]
     table = {"kernels": [{
-        "name": "develop_post_geo_fused",
-        "route": "cuda",
-        "source": "rawphotoforge_tpu_torch/csrc/develop.cu",
-        "replaces": "rawphotoforge_tpu/kernels/fused.py:488",
-        "launches": launches,
-        "max_abs_err": max(worst.values()),
-        "ms": main_case["ms"],
-        "plain_ms": main_case["plain_ms"],
-        "bound_ms": main_case["bound_ms"],
-        "bound_by": main_case["bound_by"],
-        "library_ms": None,
-    }, {
-        "name": "raw_develop_fused",
-        "route": "cuda",
-        "source": "rawphotoforge_tpu_torch/csrc/raw_develop.cu",
-        "replaces": "rawphotoforge_tpu/kernels/raw_pipeline.py:485",
-        "launches": raw_launches,
-        "max_abs_err": raw_worst,
-        "ms": raw_case["ms"],
-        "plain_ms": raw_case["plain_ms"],
-        "bound_ms": raw_case["bound_ms"],
-        "bound_by": raw_case["bound_by"],
-        "library_ms": None,
-    }]}
+        "name": name, "route": "cuda", "source": src, "replaces": tpu,
+        "launches": n, "max_abs_err": err, "ms": case["ms"],
+        "plain_ms": case["plain_ms"], "bound_ms": case["bound_ms"],
+        "bound_by": case["bound_by"], "library_ms": None,
+    } for name, src, tpu, n, err, case in rows]}
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps(table))
     print(json.dumps({"ok": True, "device": {

@@ -17,78 +17,132 @@ constexpr float kLutMax = 65535.0f;
 // Per-mask default-slot bits (the shortcut table).
 constexpr int kSlotBright = 1, kSlotHue = 2, kSlotSat = 4, kSlotLight = 8;
 
-// Views into the kernel's table (see develop.cu for the layout).
+// Views into the kernel's table as staged in shared memory (see develop.cu
+// for the layout; stage_table moves the coefficients to a 16-byte boundary).
 struct EditTables {
   const float* slots;   // [M]       default-slot bits, as floats
   const float* gains;   // [M*3]     WB gains
   const float* tone;    // [M*6]     exposure EV, contrast, shadow, highlight, black, white
   const float* chan;    // [M]       brightness-curve channel 0/1/2, 3 = all
   const float* knots;   // [M*4*S]   sorted knots, padded with 2*65536
-  const float* coeffs;  // [M*4*S*4] per-segment monomial coefficients
+  const float4* coeffs; // [M*4*S]   per-segment monomial coefficients (a, b, c, d)
   int M, S;
 };
-
-__device__ __forceinline__ EditTables edit_tables(const float* base, int M,
-                                                  int S) {
-  EditTables t;
-  t.slots = base;
-  t.gains = t.slots + M;
-  t.tone = t.gains + 3 * M;
-  t.chan = t.tone + 6 * M;
-  t.knots = t.chan + M;
-  t.coeffs = t.knots + 4 * M * S;
-  t.M = M;
-  t.S = S;
-  return t;
-}
 
 __host__ __device__ __forceinline__ int table_floats(int M, int S) {
   return 11 * M + 20 * M * S;
 }
 
+// Shared-memory floats of a kernel table of `head` floats before the edit
+// tables, as stage_table lays it out, and where its coefficients start.
+__host__ __device__ __forceinline__ int staged_coeffs(int head, int M, int S) {
+  return (head + 11 * M + 4 * M * S + 3) & ~3;
+}
+
+__host__ __device__ __forceinline__ int staged_floats(int head, int M, int S) {
+  return staged_coeffs(head, M, S) + 16 * M * S;
+}
+
+// Copies the kernel table (head floats, then the edit tables) into shared
+// memory `sh` (16-byte aligned), the coefficient block moved up to a 16-byte
+// boundary so that a segment's four coefficients are one vector read. The
+// caller synchronizes before reading it.
+__device__ __forceinline__ EditTables stage_table(float* sh,
+                                                  const float* __restrict__ table,
+                                                  int head, int M, int S,
+                                                  int tid, int nthreads) {
+  const int tail = head + 11 * M + 4 * M * S;
+  const int pad = staged_coeffs(head, M, S) - tail;
+  const int n = tail + 16 * M * S;
+  for (int i = tid; i < n; i += nthreads) sh[i < tail ? i : i + pad] = table[i];
+  EditTables t;
+  t.slots = sh + head;
+  t.gains = t.slots + M;
+  t.tone = t.gains + 3 * M;
+  t.chan = t.tone + 6 * M;
+  t.knots = t.chan + M;
+  t.coeffs = reinterpret_cast<const float4*>(sh + staged_coeffs(head, M, S));
+  t.M = M;
+  t.S = S;
+  return t;
+}
+
 // Selected packed-PCHIP evaluation: the active segment's own coefficients
-// (no telescoped deltas), then Horner.
+// (no telescoped deltas), then Horner. The active segment is the last j with
+// u >= kn[j]; the knots are sorted and padded with 2*65536, and S is a power
+// of two, so a branch-free binary search over the row (log2 S compares)
+// finds the segment the twin's select chain picks, and the result is the
+// same bit for bit. The search keeps the chosen knot, so only the
+// coefficients are read after it.
 __device__ __forceinline__ float eval_curve(float u, const float* kn,
-                                            const float* co, int S) {
-  u = fmaxf(u, kn[0]);
-  float a = co[0], b = co[1], c = co[2], d = co[3], x0 = kn[0];
-  for (int j = 1; j < S; ++j) {
-    if (u >= kn[j]) {
-      a = co[4 * j + 0];
-      b = co[4 * j + 1];
-      c = co[4 * j + 2];
-      d = co[4 * j + 3];
-      x0 = kn[j];
-    }
+                                            const float4* co, int S) {
+  float x0 = kn[0];
+  u = fmaxf(u, x0);
+  int j = 0;
+  for (int step = S >> 1; step > 0; step >>= 1) {
+    const float k = kn[j + step];
+    const bool take = u >= k;
+    j = take ? j + step : j;
+    x0 = take ? k : x0;
   }
+  const float4 c = co[j];
   const float dt = u - x0;
-  return a + dt * (b + dt * (c + dt * d));
+  return c.x + dt * (c.y + dt * (c.z + dt * c.w));
+}
+
+// y / d as the product with the rounded reciprocal and one residual
+// correction: three operations in place of a correctly rounded division.
+// Not equal to the IEEE quotient for every y and d (for the vignette's
+// d = 0.75 it is not), but equal for d = 65535 and 32767.5 on every whole
+// y in [0, 65535], the curves' outputs (held exhaustively against the
+// twin's division by chip_smoke.py phase 2a).
+__device__ __forceinline__ float div_const(float y, float d, float rcp) {
+  const float q = y * rcp;
+  const float r = __fmaf_rn(-q, d, y);
+  return __fmaf_rn(r, rcp, q);
+}
+
+__device__ __forceinline__ float div_65535(float y) {
+  return div_const(y, kLutMax, RPF_F(1.0f / 65535.0f));
+}
+
+__device__ __forceinline__ float div_32767_5(float y) {
+  return div_const(y, 32767.5f, RPF_F(1.0f / 32767.5f));
 }
 
 // LUT semantics: index floor(v*65535) clamped to [0, 65535] BEFORE the
 // evaluation, result truncated and clamped like the i32 table, rescaled.
+template <bool GAIN>
 __device__ __forceinline__ float quantized_curve(float v, const float* kn,
-                                                 const float* co, int S,
-                                                 float denom) {
+                                                 const float4* co, int S) {
   const float u = clampf(floorf(v * kLutMax), 0.0f, kLutMax);
   const float y = clampf(floorf(eval_curve(u, kn, co, S)), 0.0f, 65535.0f);
-  return y / denom;
+  return GAIN ? div_32767_5(y) : div_65535(y);
 }
 
 // What a default brightness/hue curve evaluates to: the floor staircase.
 __device__ __forceinline__ float staircase(float v) {
-  return clampf(floorf(v * kLutMax), 0.0f, kLutMax) / kLutMax;
+  return div_65535(clampf(floorf(v * kLutMax), 0.0f, kLutMax));
 }
 
-// Vignette on global pixel coordinates (wgpu_shader.wgsl:166-178).
+// Vignette on global pixel coordinates (wgpu_shader.wgsl:166-178), split so
+// that each row and each column computes its part once: vignette_axis is
+// ((c / extent - 0.5) * 1.5)^2 for a row (ys, true height) or a column (xs,
+// true width), with the arithmetic of the twin's broadcast [H,1] and [1,W].
+__device__ __forceinline__ float vignette_strength(float value) {
+  return (-value / 100.0f) * 2.0f;
+}
+
+__device__ __forceinline__ float vignette_axis(float c, float extent) {
+  const float v = (c / extent - 0.5f) * 1.5f;
+  return v * v;
+}
+
 __device__ __forceinline__ void vignette(float& r, float& g, float& b,
-                                         float value, float hf, float wf,
-                                         float ys, float xs) {
-  const float strength = (-value / 100.0f) * 2.0f;
+                                         float strength, float ax_y,
+                                         float ax_x) {
   if (strength == 0.0f) return;
-  const float cy = (ys / hf - 0.5f) * 1.5f;
-  const float cx = (xs / wf - 0.5f) * 1.5f;
-  const float dist = sqrtf(cx * cx + cy * cy);
+  const float dist = sqrtf(ax_x + ax_y);
   const float t = clampf((dist - 0.25f) / 0.75f, 0.0f, 1.0f);
   const float falloff = t * sqrtf(t);
   const float gain = clampf(1.0f - strength * falloff, 0.0f, 4.0f);
@@ -148,13 +202,13 @@ __device__ __forceinline__ void bright_chain(float& r, float& g, float& b,
   const float ch = t.chan[k];
   const bool def = (static_cast<int>(t.slots[k]) & kSlotBright) != 0;
   const float* kn = t.knots + (4 * k) * t.S;
-  const float* co = t.coeffs + (4 * k) * t.S * 4;
+  const float4* co = t.coeffs + (4 * k) * t.S;
   if (ch == 0.0f || ch == 3.0f)
-    r = def ? staircase(r) : quantized_curve(r, kn, co, t.S, kLutMax);
+    r = def ? staircase(r) : quantized_curve<false>(r, kn, co, t.S);
   if (ch == 1.0f || ch == 3.0f)
-    g = def ? staircase(g) : quantized_curve(g, kn, co, t.S, kLutMax);
+    g = def ? staircase(g) : quantized_curve<false>(g, kn, co, t.S);
   if (ch == 2.0f || ch == 3.0f)
-    b = def ? staircase(b) : quantized_curve(b, kn, co, t.S, kLutMax);
+    b = def ? staircase(b) : quantized_curve<false>(b, kn, co, t.S);
 }
 
 // The edit stack after the vignette. sel(k) is true where mask k applies.
@@ -175,25 +229,25 @@ __device__ __forceinline__ void edit_stack(float& r, float& g, float& b,
       if (!sel(k)) continue;
       const int bits = static_cast<int>(t.slots[k]);
       const float* kn = t.knots + (4 * k) * t.S;
-      const float* co = t.coeffs + (4 * k) * t.S * 4;
+      const float4* co = t.coeffs + (4 * k) * t.S;
       const int seg = t.S;
       const float new_h = (bits & kSlotHue)
-          ? staircase(H) : quantized_curve(H, kn + seg, co + 4 * seg, seg, kLutMax);
+          ? staircase(H) : quantized_curve<false>(H, kn + seg, co + seg, seg);
       const float sat_g = (bits & kSlotSat)
           ? default_gain
-          : quantized_curve(H, kn + 2 * seg, co + 8 * seg, seg, 32767.5f);
+          : quantized_curve<true>(H, kn + 2 * seg, co + 2 * seg, seg);
       const float light_g = (bits & kSlotLight)
           ? default_gain
-          : quantized_curve(H, kn + 3 * seg, co + 12 * seg, seg, 32767.5f);
+          : quantized_curve<true>(H, kn + 3 * seg, co + 3 * seg, seg);
       H = new_h;
       C = C * sat_g;
       L = L * light_g;
     }
     oklch_to_linear_srgb(L, C, H, r, g, b);
   }
-  r = clampf(linear_to_srgb(r), 0.0f, 1.0f);
-  g = clampf(linear_to_srgb(g), 0.0f, 1.0f);
-  b = clampf(linear_to_srgb(b), 0.0f, 1.0f);
+  r = clampf(srgb_oetf(r), 0.0f, 1.0f);
+  g = clampf(srgb_oetf(g), 0.0f, 1.0f);
+  b = clampf(srgb_oetf(b), 0.0f, 1.0f);
 }
 
 }  // namespace rpf

@@ -59,14 +59,21 @@ __device__ __forceinline__ void sincos_turns(float h, float& s_out,
   c_out = sign * cos_p;
 }
 
-// sRGB OETF (wgpu_shader.wgsl:95-103), unclamped; pow as in the JAX kernel.
-__device__ __forceinline__ float linear_to_srgb(float c) {
+// sRGB OETF (wgpu_shader.wgsl:95-103), unclamped, with x^(1/2.4) taken as
+// exp2(log2(x) / 2.4) (ktrig.py srgb_oetf): on the H100 the two accurate
+// library calls take less time than one exact powf, and torch's exp2 and
+// log2 on the card are the same functions, so the twin rounds alike.
+__device__ __forceinline__ float srgb_oetf(float c) {
   return c <= RPF_F(0.0031308)
              ? c * RPF_F(12.92)
-             : RPF_F(1.055) * powf(fmaxf(c, 0.0f), RPF_F(1.0 / 2.4))
+             : RPF_F(1.055) * exp2f(log2f(fmaxf(c, 0.0f)) * RPF_F(1.0 / 2.4))
                    - RPF_F(0.055);
 }
 
+// The OKLab cube root: the exact-LUT anchor's torch.pow, so that an exactly
+// gray pixel - whose OKLab a and b are the last-ulp differences of its three
+// cube roots, and whose hue the hue-indexed curves read - takes the
+// anchor's hue.
 __device__ __forceinline__ float cbrt_pow(float x) {
   return powf(fmaxf(x, 0.0f), RPF_F(1.0 / 3.0));
 }

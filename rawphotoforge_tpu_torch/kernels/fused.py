@@ -8,21 +8,27 @@ per-mask (WB -> tone -> brightness curve) -> per-mask OKLCH hue/sat/light
 (shared with the RAW kernel of a later slice) and the polynomial trig in
 ``csrc/ktrig.cuh``.
 
-Bound on the H100: bytes. A 24 MP frame (bucket-padded to 4096x6016 =
-24.64 Mpx) reads 12 B/px of f32 planes and writes 12 B/px: 591 MB, about
-0.18 ms at 3.35 TB/s; four u8 mask rows add 4 B/px (690 MB, ~0.21 ms).
+Bound on the H100: bytes on paper. A 24 MP frame (bucket-padded to
+4096x6016 = 24.64 Mpx) reads 12 B/px of f32 planes and writes 12 B/px:
+591 MB, about 0.18 ms at 3.35 TB/s; four u8 mask rows add 4 B/px (690 MB,
+~0.21 ms). The exact per-pixel arithmetic is what sets the time.
 
-Design: one thread per pixel in a grid-stride loop over the row-major
-image, so every plane, mask and output access is coalesced; the small
-tables (gains, tone, channel, slot bits, knots, coefficients, vignette)
-are packed by the wrapper into one device buffer and staged in shared
-memory once per block, where each curve segment is a uniform (broadcast)
-read. Curves are evaluated exactly as the Pallas kernel does: select the
-active packed-PCHIP segment, then Horner, with the index clamp before and
-the truncating clamp after. M, S, H, W and the per-mask default-slot bits
-are runtime values; templates cover only ``identity_oklch`` and the mask
-dtype (u8 or f32). No faster design (exact u16 LUT gathers, TMA tiling)
-is attempted here.
+Design: a 2-D grid of 32x8-thread blocks, one wave of them; each thread
+owns 4 consecutive pixels of a row (16-byte vector loads and stores, one
+4-byte load per u8 mask row, mask rows as per-pixel bits) and walks down
+the rows, so the vignette's column terms are computed once per thread and
+its row term once per row. The small tables (gains, tone, channel, slot
+bits, knots, coefficients, vignette) are packed by the wrapper into one
+device buffer and staged in shared memory once per block. Curves are
+evaluated as the Pallas kernel does — the active packed-PCHIP segment
+(found by a binary search of the sorted knots; the twin selects it with a
+compare chain), then Horner, with the index clamp before and the
+truncating clamp after — and their rescale by 65535 or 32767.5 is a
+multiply with one residual correction, equal to the IEEE quotient on all
+65536 whole inputs. The sRGB OETF takes x^(1/2.4) as exp2(log2(x)/2.4)
+(``kernels/ktrig.srgb_oetf``); the OKLab cube root stays ``powf``. M,
+S, H, W and the per-mask default-slot bits are runtime values; templates
+cover only ``identity_oklch`` and the mask dtype (u8 or f32).
 
 ``develop_post_geo_fused`` takes the twin for a CPU tensor and the kernel
 for a CUDA tensor; there is no fallback from one to the other.
@@ -101,11 +107,18 @@ def _quantized_curve(v, knots, coeffs, row, num_seg, denom):
     return div(y, denom)
 
 
+def _encode(c):
+    """The edit stack's store: the OETF clamped to [0, 1]."""
+    return torch.clamp(ktrig.srgb_oetf(c), 0.0, 1.0)
+
+
 def edit_stack(r, g, b, sel_for, gains, tone, chan, knots, coeffs,
                num_masks, num_seg, identity_oklch, slot_default):
     """The per-mask edit stack (wgpu_shader.wgsl:279-336) on planar
     tensors: (WB -> tone -> brightness curve) per mask, the per-mask OKLCH
-    hue/sat/light pass, then the sRGB encode. ``sel_for(k)`` is None
+    hue/sat/light pass, then the sRGB encode by ``kernels/ktrig.srgb_oetf``
+    (the anchor, ``ops/develop``, keeps ``torch.pow``; the two agree within
+    ``assert_close``). ``sel_for(k)`` is None
     (unconditional) or mask k's boolean selection; ``slot_default(k, slot)``
     says whether mask k's curve in ``slot`` takes the default-curve
     shortcut, bit-identical to evaluating the default curve."""
@@ -137,9 +150,7 @@ def edit_stack(r, g, b, sel_for, gains, tone, chan, knots, coeffs,
         # Default hue/sat/light curves only quantize H to 1/65536 and scale
         # C and L by 32767/32767.5: skipping the round trip deviates
         # <= ~2e-3 after the encode (documented 3e-3 bound).
-        return (torch.clamp(color.linear_to_srgb(r), 0.0, 1.0),
-                torch.clamp(color.linear_to_srgb(g), 0.0, 1.0),
-                torch.clamp(color.linear_to_srgb(b), 0.0, 1.0))
+        return _encode(r), _encode(g), _encode(b)
     L, C, H = color.linear_srgb_to_oklch(r, g, b, atan2_turns=ktrig.atan2_turns)
     # Same f32 division the general path computes for a default curve.
     default_gain = torch.tensor(32767.0) / torch.tensor(32767.5)
@@ -160,9 +171,7 @@ def edit_stack(r, g, b, sel_for, gains, tone, chan, knots, coeffs,
             C = torch.where(sel, C * sat_g, C)
             L = torch.where(sel, L * light_g, L)
     r, g, b = color.oklch_to_linear_srgb(L, C, H, sincos_turns=ktrig.sincos_turns)
-    return (torch.clamp(color.linear_to_srgb(r), 0.0, 1.0),
-            torch.clamp(color.linear_to_srgb(g), 0.0, 1.0),
-            torch.clamp(color.linear_to_srgb(b), 0.0, 1.0))
+    return _encode(r), _encode(g), _encode(b)
 
 
 def _validate(planes, params, masks, main_mask_all_ones, default_oklch_curves,
@@ -275,12 +284,30 @@ def library():
                        ctypes.c_int, ctypes.c_int, ctypes.c_int,
                        ctypes.c_void_p]
         fn.restype = ctypes.c_int
+        dfn = lib.rpf_develop_device_fn
+        dfn.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+                        ctypes.c_longlong, ctypes.c_void_p]
+        dfn.restype = ctypes.c_int
         _LIB = lib
     return _LIB
 
 
 # Shared memory a block may use on Hopper (hopper-kernels guide, 227 KB).
 _MAX_SMEM_BYTES = 232448
+
+
+def check_segments(s: int) -> None:
+    """The kernels binary-search a curve row of S segments: S must be a
+    power of two, as ``pack_params`` pads it."""
+    if s < 1 or s & (s - 1):
+        raise ValueError(f"curve rows need a power-of-two segment count, got {s}")
+
+
+def host_floats(values, device) -> torch.Tensor:
+    """Numbers known on the host as an f32 tensor on ``device``, copied
+    without waiting for the work queued on the card: a blocking copy would
+    hold each launch's table packing until the previous kernel is done."""
+    return torch.tensor(values, dtype=torch.float32).to(device, non_blocking=True)
 
 
 def pack_table(params: DevelopParams, m: int, s: int, slots, row_offset,
@@ -290,12 +317,14 @@ def pack_table(params: DevelopParams, m: int, s: int, slots, row_offset,
     [tone 6M] [channel M] [knots 4MS] [coeffs 16MS]."""
     bits = [float(sum(bit for bit, on in zip(_SLOT_BITS, sl) if on))
             for sl in slots]
-    off = torch.as_tensor(0.0 if row_offset is None else row_offset,
-                          dtype=torch.float32, device=device).reshape(1)
+    if isinstance(row_offset, torch.Tensor):
+        off = row_offset.to(device=device, dtype=torch.float32).reshape(1)
+    else:
+        off = host_floats([0.0 if row_offset is None else row_offset], device)
     knots, coeffs = pack_curve_tables(params, m, s)
     return torch.cat([
         params.vignette.reshape(1), params.extent.reshape(2), off,
-        torch.tensor(bits, dtype=torch.float32, device=device),
+        host_floats(bits, device),
         params.gains.reshape(-1), params.tone.reshape(-1),
         params.bright_channel.to(torch.float32).reshape(-1),
         knots.reshape(-1), coeffs.reshape(-1),
@@ -311,10 +340,12 @@ def _launch(planes, params, masks, m, main_only, slots, identity_oklch,
     planes = planes.contiguous()
     _, h, w = planes.shape
     s = params.breaks.shape[-1]
+    check_segments(s)
     table = pack_table(params, m, s, slots, row_offset, dev)
-    if table.numel() * 4 > _MAX_SMEM_BYTES:
+    # The kernel stages the table with up to 3 floats of alignment padding.
+    if (table.numel() + 3) * 4 > _MAX_SMEM_BYTES:
         raise ValueError(f"{m} masks with {s}-segment curves need "
-                         f"{table.numel() * 4} B of tables, over the "
+                         f"{(table.numel() + 3) * 4} B of tables, over the "
                          f"{_MAX_SMEM_BYTES} B of shared memory a block has")
     if main_only or masks is None:
         mask_kind, mask_ptr = 0, None
@@ -332,16 +363,38 @@ def _launch(planes, params, masks, m, main_only, slots, identity_oklch,
         masks = masks.contiguous()
         mask_ptr = masks.data_ptr()
     out = torch.empty_like(planes)
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = library().rpf_develop_launch(
             planes.data_ptr(), mask_ptr, mask_kind, table.data_ptr(),
             table.numel(), out.data_ptr(), m, s, h, w, int(main_only),
-            int(identity_oklch), sms * 8, stream)
+            int(identity_oklch), 0, stream)
     if err != 0:
         raise RuntimeError(f"develop kernel launch failed: CUDA error {err}")
     LAUNCHES += 1
+    return out
+
+
+# The kernel library's device functions for the exhaustive checks.
+DEVICE_FNS = {"cbrt_pow": 0, "srgb_oetf": 1, "div_65535": 2, "div_32767_5": 3}
+
+
+def device_fn(name: str, x: torch.Tensor) -> torch.Tensor:
+    """One of the edit stack's device functions (``DEVICE_FNS``: the OKLab
+    cube root, the OETF, the divisions by a constant) applied to every
+    element of the f32 CUDA tensor ``x``: what the exhaustive checks hold
+    against the torch twins. Not a launch of the develop kernel
+    (``LAUNCHES`` does not count it)."""
+    if x.device.type != "cuda" or x.dtype != torch.float32:
+        raise ValueError("device_fn takes an f32 CUDA tensor")
+    x = x.contiguous()
+    out = torch.empty_like(x)
+    with torch.cuda.device(x.device):
+        err = library().rpf_develop_device_fn(
+            DEVICE_FNS[name], x.data_ptr(), out.data_ptr(), x.numel(),
+            torch.cuda.current_stream(x.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"device function {name} failed: CUDA error {err}")
     return out
 
 

@@ -6,8 +6,17 @@ kernel computes (``csrc/ktrig.cuh`` holds them as ``__device__``
 functions, constant for constant and operation for operation). Inputs and
 outputs are *turns* in [0, 1), the hue encoding of wgpu_shader.wgsl:72-74.
 
-``cbrt_fast`` and ``linear_to_srgb_fast`` are kept for the accuracy test
-only: the develop kernel uses ``powf``, as the Pallas kernel uses pow.
+``srgb_oetf`` is the sRGB OETF of both CUDA kernels' edit stack and of its
+plain twin (``kernels/fused.edit_stack``): x^(1/2.4) as exp2(log2(x)/2.4),
+which on the H100 takes less time than CUDA's exact ``powf``. The OKLab
+cube root stays ``torch.pow`` (``core/color``), as in the exact-LUT anchor.
+
+``cbrt_fast`` and ``linear_to_srgb_fast`` (exponent bit-hack seed plus two
+Halley steps; x^(1/2.4) = cbrt(sqrt(sqrt(x^5)))) are kept for the accuracy
+test only: in the develop kernel on the H100 they took more time than
+``powf`` (measurements in PERF.md, section 6), and the cube root's last ulp,
+unlike ``pow``'s, gives an exactly gray pixel another hue than the
+anchor's.
 """
 
 from __future__ import annotations
@@ -68,6 +77,15 @@ def linear_to_srgb_fast(c):
     x5 = x * x
     x5 = x5 * x5 * x
     root = cbrt_fast(torch.sqrt(torch.sqrt(x5)))
+    return torch.where(c <= 0.0031308, c * 12.92, 1.055 * root - 0.055)
+
+
+def srgb_oetf(c):
+    """The sRGB OETF of the CUDA kernels' edit stack (wgpu_shader.wgsl:
+    95-103), unclamped: x^(1/2.4) as exp2(log2(x) / 2.4). On the card
+    torch's exp2 and log2 are the kernel's exp2f and log2f, so the twin
+    rounds as the kernel does; within a few ulps of ``torch.pow``."""
+    root = torch.exp2(torch.log2(torch.clamp(c, min=0.0)) * (1.0 / 2.4))
     return torch.where(c <= 0.0031308, c * 12.92, 1.055 * root - 0.055)
 
 

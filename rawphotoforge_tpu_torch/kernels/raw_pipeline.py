@@ -11,18 +11,19 @@ shared with the develop kernel (``kernels/fused``).
 
 Bound on the H100: bytes on paper — 4 B/px of mosaic in and 12 B/px of
 sRGB out, 16 B/px: ~0.115 ms for 24 MP at 3.35 TB/s. As with the develop
-kernel, the exact ``powf`` and IEEE divisions of the edit stack are what
-the operation count does not see.
+kernel, the exact arithmetic (IEEE divisions and square roots, no
+contraction) is what sets the time.
 
-Design: one block per output tile stages its haloed mosaic window in
-shared memory (Bayer 16x64 outputs + 4 px; X-Trans 32x32 outputs + 12 px
-with its intermediate planes), computes the demosaiced, matrix-clipped
-planes over the tile plus the sharpen's 2-px margin, then runs the
-per-pixel tail. There is no tile-multiple padding: the block reads mirror
-(Bayer) or periodic (X-Trans) indices where the Pallas wrapper padded, and
-its CFA phases are global, so outputs do not depend on any tile size. The
-``tile_h``/``tile_w`` arguments are validated as the JAX wrapper validates
-them, and do not change the result.
+Design: a block stages its haloed mosaic window in shared memory (Bayer:
+one 16x64 output tile + 4 px; X-Trans: a 48-column strip + 12 px, walked
+down a band in steps of 24 rows that keep the window, green-estimate and
+plane rows the next step shares), computes the
+demosaiced, matrix-clipped planes over its outputs plus the sharpen's 2-px
+margin, then runs the per-pixel tail. There is no tile-multiple padding:
+the block reads mirror (Bayer) or periodic (X-Trans) indices where the
+Pallas wrapper padded, and its CFA phases are global, so outputs do not
+depend on any tile size. The ``tile_h``/``tile_w`` arguments are validated
+as the JAX wrapper validates them, and do not change the result.
 
 ``raw_develop_fused`` takes the twin for a CPU tensor and the kernel for a
 CUDA tensor; there is no fallback from one to the other.
@@ -52,9 +53,10 @@ XT_TILE_W = 768
 # Triangle taps of the normalized convolutions (ops/demosaic._NC_KERNEL_1D).
 _NC_TAPS = (1.0, 2.0, 3.0, 4.0, 3.0, 2.0, 1.0)
 
-# Kernel launches since the count was last set to 0 (the twin never
-# counts): lets a run show that the main path went through the kernel.
-LAUNCHES = 0
+# Kernel launches since the counts were last set to 0, by __global__
+# kernel (the twin never counts): lets a run show that the main path went
+# through each kernel.
+KERNEL_LAUNCHES = {"bayer_kernel": 0, "xtrans_kernel": 0}
 # Build record of the loaded library (kernels/cuda_build.build), or None.
 BUILD = None
 _LIB = None
@@ -101,10 +103,12 @@ def _validate(mosaic01, params, pattern, tile_h, tile_w, masks,
 
 
 def _f32(x, device) -> torch.Tensor:
-    """A tensor, array or number as f32 on ``device``."""
+    """A tensor, array or number as f32 on ``device`` (a host value copied
+    without waiting for the work queued on the card)."""
     if isinstance(x, torch.Tensor):
         return x.to(device=device, dtype=torch.float32)
-    return torch.from_numpy(np.array(x, dtype=np.float32)).to(device)
+    return torch.from_numpy(np.array(x, dtype=np.float32)).to(
+        device, non_blocking=True)
 
 
 # -- the plain twin -----------------------------------------------------------
@@ -284,7 +288,7 @@ def pack_table(params: DevelopParams, m: int, s: int, slots, sharpen_amount,
     [gauss taps 5] then the develop kernel's edit tables (slot bits,
     gains, tone, channel, knots, coefficients)."""
     edit = fused.pack_table(params, m, s, slots, None, device)[4:]
-    taps = torch.from_numpy(_gauss_taps(1.0, 2)).to(device)
+    taps = _f32(_gauss_taps(1.0, 2), device)
     return torch.cat([
         params.vignette.reshape(1), params.extent.reshape(2),
         _f32(sharpen_amount, device).reshape(1),
@@ -295,18 +299,18 @@ def pack_table(params: DevelopParams, m: int, s: int, slots, sharpen_amount,
 
 def _launch(mosaic01, wb_gains, cam2srgb, params, sharpen_amount, pattern,
             masks, m, slots, identity_oklch):
-    global LAUNCHES
     dev = mosaic01.device
     if mosaic01.dtype != torch.float32:
         raise ValueError(f"mosaic must be float32, got {mosaic01.dtype}")
     mosaic01 = mosaic01.contiguous()
     h, w = mosaic01.shape
     s = params.breaks.shape[-1]
+    fused.check_segments(s)
     table = pack_table(params, m, s, slots, sharpen_amount, cam2srgb,
                        wb_gains, dev)
-    if table.numel() * 4 > fused._MAX_SMEM_BYTES // 2:
+    if (table.numel() + 3) * 4 > fused._MAX_SMEM_BYTES // 2:
         raise ValueError(f"{m} masks with {s}-segment curves need "
-                         f"{table.numel() * 4} B of tables, over the half of "
+                         f"{(table.numel() + 3) * 4} B of tables, over the half of "
                          f"a block's shared memory the RAW kernel leaves "
                          f"them")
     regional = None
@@ -330,7 +334,7 @@ def _launch(mosaic01, wb_gains, cam2srgb, params, sharpen_amount, pattern,
             code, r_in_row0, int(identity_oklch), stream)
     if err != 0:
         raise RuntimeError(f"RAW develop kernel launch failed: CUDA error {err}")
-    LAUNCHES += 1
+    KERNEL_LAUNCHES["xtrans_kernel" if code < 0 else "bayer_kernel"] += 1
     return out
 
 
@@ -358,7 +362,7 @@ def raw_develop_fused(
     ``default_oklch_curves``) is <= 3e-3 from the full path.
 
     A CPU tensor runs the plain twin; a CUDA tensor launches the kernel
-    (or raises). The kernel counts its launches in ``LAUNCHES``."""
+    (or raises). Each kernel counts its launches in ``KERNEL_LAUNCHES``."""
     m = _validate(mosaic01, params, pattern, tile_h, tile_w, masks,
                   default_oklch_curves, identity_oklch)
     if mosaic01.device.type == "cpu":

@@ -188,6 +188,6 @@ def test_batch_needs_the_card_unless_asked(dng_dir, tmp_path, capsys):
 
 
 def test_batch_kernel_is_the_twin_on_the_cpu(dng_dir, tmp_path):
-    before = trp.LAUNCHES
+    before = dict(trp.KERNEL_LAUNCHES)
     assert tcli.main(["batch", str(dng_dir), str(tmp_path), "--device", "cpu"]) == 0
-    assert trp.LAUNCHES == before
+    assert trp.KERNEL_LAUNCHES == before

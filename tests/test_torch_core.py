@@ -218,6 +218,33 @@ def test_ktrig_fast_powers_accuracy():
         rtol=1e-6, atol=0)
 
 
+def test_srgb_oetf_matches_pow_form(rng):
+    """The kernels' OETF (x^(1/2.4) as exp2(log2(x)/2.4)) against the
+    torch.pow form of the exact-LUT anchor and the JAX package's, on a
+    dense sample with values below 0, on the linear segment and above 1."""
+    x = np.concatenate([_rand(rng, (20000,), -0.2, 1.3),
+                        np.linspace(0.0, 0.01, 5001), np.linspace(1.0, 64.0, 5001),
+                        [0.0, -0.0, 0.0031308, 1.0]]).astype(np.float32)
+    ours = tktrig.srgb_oetf(_t(x)).numpy()
+    np.testing.assert_allclose(ours, tcolor.linear_to_srgb(_t(x)).numpy(),
+                               rtol=ULPS, atol=ULPS)
+    np.testing.assert_allclose(ours, np.asarray(jcolor.linear_to_srgb(jnp.asarray(x))),
+                               rtol=ULPS, atol=ULPS)
+
+
+def test_srgb_oetf_clamped_store_above_one_and_black():
+    """What the edit stack stores: above 1 the clamped OETF is exactly 1.0,
+    as the pow form's is (dense sample up to 1e6, where x^5 would have
+    overflowed an x^5-based root); black stays exactly 0, with no NaN."""
+    x = torch.from_numpy(np.concatenate([
+        np.linspace(1.001, 4.0, 20001), np.logspace(0.7, 6, 5001)]).astype(np.float32))
+    ours = torch.clamp(tktrig.srgb_oetf(x), 0.0, 1.0)
+    assert torch.equal(ours, torch.ones_like(x))
+    assert torch.equal(ours, torch.clamp(tcolor.linear_to_srgb(x), 0.0, 1.0))
+    black = tktrig.srgb_oetf(torch.zeros(4))
+    assert not torch.isnan(black).any() and torch.equal(black, torch.zeros(4))
+
+
 TONES = [
     (0.0, 0.0, 0.0, 0.0, 0.0, 0.0),
     (0.7, 0.25, 0.30, -0.20, 0.05, -0.05),

@@ -1,7 +1,8 @@
-"""The hand-written CUDA develop kernel against its plain torch twin, on the
-card. Every test here needs a CUDA device and skips without one (the
-kernel has no CPU mode). The file imports neither jax nor the test
-helpers, so on a machine without jax it runs on its own:
+"""The hand-written CUDA kernels (develop, RAW Bayer and X-Trans) against
+their plain torch twins, on the card. Every test here needs a CUDA device
+and skips without one (the kernels have no CPU mode). The file imports
+neither jax nor the test helpers (only chip_smoke.py's case builders), so
+on a machine without jax it runs on its own:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 """
@@ -141,14 +142,63 @@ def test_raw_kernel_bit_identical_to_twin(dev, pattern, h, w, sharpen, m):
     mosaic = torch.from_numpy(rng.random((h, w), dtype=np.float32)).to(dev)
     params = pack_params(_params()[:m], extent=(h, w), device=dev)
     _, masks = _inputs(dev, h, w, m)
-    before = rp.LAUNCHES
+    kernel = "xtrans_kernel" if pattern == "XTRANS" else "bayer_kernel"
+    before = dict(rp.KERNEL_LAUNCHES)
     out = rp.raw_develop_fused(mosaic, (1.8, 1.0, 1.4), RAW_CAM, params,
                                np.float32(sharpen), pattern=pattern, masks=masks)
     torch.cuda.synchronize()
-    assert rp.LAUNCHES == before + 1
+    assert rp.KERNEL_LAUNCHES == dict(before, **{kernel: before[kernel] + 1})
     ref = rp.raw_develop_fused_ref(mosaic, (1.8, 1.0, 1.4), RAW_CAM, params,
                                    np.float32(sharpen), pattern=pattern,
                                    masks=masks)
+    assert torch.equal(out, ref)
+
+
+@pytest.mark.parametrize("s", [1, 2, 4, 8, 16])
+def test_curve_rows_bit_identical_to_twin(dev, s):
+    """The binary curve search: every S a row packs into, at a width that
+    is not a multiple of 4 (the scalar loads of the ragged edge)."""
+    from chip_smoke import curve_rows
+
+    planes, masks = _inputs(dev, 37, 150, 2)
+    params = curve_rows(dev, s)
+    out = fused.develop_post_geo_fused(planes, params, masks)
+    assert torch.equal(out, fused.develop_post_geo_fused_ref(planes, params, masks))
+
+
+def test_device_functions_match_twins(dev):
+    """The OKLab cube root, the OETF and the divisions by a constant
+    against their torch twins (chip_smoke.py phase 2a sweeps every f32)."""
+    from rawphotoforge_tpu_torch.core import color
+    from rawphotoforge_tpu_torch.core.numerics import div
+    from rawphotoforge_tpu_torch.kernels import ktrig
+
+    x = torch.rand(1 << 20, device=dev) * 2.0
+    for name, twin in (("cbrt_pow", color._cbrt), ("srgb_oetf", ktrig.srgb_oetf)):
+        assert torch.equal(fused.device_fn(name, x), twin(x)), name
+    whole = torch.arange(65536, dtype=torch.float32, device=dev)
+    for name, d in (("div_65535", 65535.0), ("div_32767_5", 32767.5)):
+        assert torch.equal(fused.device_fn(name, whole), div(whole, d)), name
+
+
+@pytest.mark.parametrize("h,w", [(12, 12), (61, 133), (100, 700)])
+def test_xtrans_kernel_at_edge_shapes(dev, h, w):
+    """The X-Trans kernel at sizes that are not multiples of its 48x24
+    step or of 6, down to the smallest legal 12x12, bit for bit against the
+    twin."""
+    from rawphotoforge_tpu_torch.kernels import raw_pipeline as rp
+
+    rng = np.random.default_rng(11)
+    mosaic = torch.from_numpy(rng.random((h, w), dtype=np.float32)).to(dev)
+    params = pack_params(_params()[:3], extent=(h, w), device=dev)
+    _, masks = _inputs(dev, h, w, 3)
+    before = dict(rp.KERNEL_LAUNCHES)
+    out = rp.raw_develop_fused(mosaic, (1.8, 1.0, 1.4), RAW_CAM, params,
+                               np.float32(0.8), pattern="XTRANS", masks=masks)
+    torch.cuda.synchronize()
+    assert rp.KERNEL_LAUNCHES["xtrans_kernel"] == before["xtrans_kernel"] + 1
+    ref = rp.raw_develop_fused_ref(mosaic, (1.8, 1.0, 1.4), RAW_CAM, params,
+                                   np.float32(0.8), pattern="XTRANS", masks=masks)
     assert torch.equal(out, ref)
 
 

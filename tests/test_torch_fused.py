@@ -13,6 +13,7 @@ from rawphotoforge_tpu.core.params import EditParameters as JEdit, pack_params a
 from rawphotoforge_tpu.kernels import fused as jfused
 from rawphotoforge_tpu.ops import develop as jdev
 
+from rawphotoforge_tpu_torch.core import color as tcolor
 from rawphotoforge_tpu_torch.core.params import (
     BRIGHTNESS, HUE, LIGHTNESS, SATURATION, EditParameters, default_curve_slots,
     pack_params)
@@ -301,6 +302,49 @@ def test_dispatch_cpu_runs_twin_and_other_devices_raise():
     with pytest.raises(ValueError, match="no develop kernel"):
         fused.develop_post_geo_fused(planes.to("meta"), params, None,
                                      main_mask_all_ones=True)
+
+
+@pytest.mark.parametrize("identity", [False, True])
+def test_twin_oetf_within_pow_form(rng, monkeypatch, identity):
+    """The twin's edit stack with the kernels' OETF (exp2/log2) against the
+    same stack with the anchor's torch.pow OETF: the assert_close rule, and
+    exactly black pixels stay 0 with no NaN."""
+    p = full_stack_edit()
+    if identity:
+        p = EditParameters()
+        p.set_tone(exposure=0.8, contrast=20, shadow=15)
+        p.set_vignette(40)
+    img = nongray_image(rng, 48, 160).transpose(2, 0, 1).copy()
+    img[:, :4, :4] = 0.0
+    flags = dict(main_mask_all_ones=True, default_bright_curves=identity,
+                 default_oklch_curves=identity, identity_oklch=identity)
+    params = pack_params([p], device="cpu")
+    ours = fused.develop_post_geo_fused(torch.from_numpy(img), params, None, **flags)
+    monkeypatch.setattr(fused.ktrig, "srgb_oetf", tcolor.linear_to_srgb)
+    pow_form = fused.develop_post_geo_fused(torch.from_numpy(img), params, None,
+                                            **flags)
+    assert not torch.isnan(ours).any()
+    assert_close(_hwc(ours.numpy()), _hwc(pow_form.numpy()))
+
+
+def test_curve_rows_need_power_of_two_segments():
+    """The kernels binary-search a curve row: S must be a power of two, as
+    pack_params pads it (1, 2, 4, ... 32)."""
+    for s in (1, 2, 4, 8, 16, 32):
+        fused.check_segments(s)
+    for s in (0, 3, 6, 12):
+        with pytest.raises(ValueError, match="power-of-two"):
+            fused.check_segments(s)
+    sizes = {pack_params([_curve_with(n)], device="cpu").breaks.shape[-1]
+             for n in range(2, 17)}
+    assert sizes == {2, 4, 8, 16}
+
+
+def _curve_with(n):
+    p = EditParameters()
+    xs = np.linspace(0, 65535, n).round().astype(int).tolist()
+    p.set_curve(BRIGHTNESS, xs, xs)
+    return p
 
 
 @pytest.mark.parametrize("m,s", [(1, 2), (3, 4), (4, 8)])

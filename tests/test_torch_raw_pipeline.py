@@ -197,10 +197,10 @@ def test_argument_checks(rng):
 def test_cpu_tensor_runs_the_twin_uncounted(rng):
     mosaic = torch.from_numpy(rng.random((16, 64), dtype=np.float32))
     params = pack_params([_edit()], device="cpu")
-    before = rp.LAUNCHES
+    before = dict(rp.KERNEL_LAUNCHES)
     out = rp.raw_develop_fused(mosaic, WB, CAM, params, np.float32(0.3))
     ref = rp.raw_develop_fused_ref(mosaic, WB, CAM, params, np.float32(0.3))
-    assert torch.equal(out, ref) and rp.LAUNCHES == before
+    assert torch.equal(out, ref) and rp.KERNEL_LAUNCHES == before
 
 
 @pytest.mark.parametrize("pattern,code", [
