@@ -28,8 +28,10 @@ Phases (any failure raises, and the script exits non-zero):
  4. CUDA-event timings per 24 MP variant beside the byte and operation
     bounds, the twin's time, and the editor's render latency per level;
  5. the one-pass RAW kernel held against its plain torch twin, bit for
-    bit: the four Bayer patterns at 64x512, 50x300 and 37x150 and X-Trans
-    at 96x768, 100x700, 12x12 and 61x133, each with
+    bit: the four Bayer patterns at 64x512, 50x300, 37x150 and the Bayer
+    kernel's edge shapes (BAYER_EDGE_HW; 70x380 once more with the mosaic
+    one float off the 16-byte grid) and X-Trans at 96x768, 100x700, 12x12
+    and 61x133, each with
     M=1 / M=3 (u8 masks), sharpen 0 / 0.8, the default-curve shortcuts
     (bit-identical to the general kernel) and identity_oklch (3e-3
     bound), plus one full-size frame of each CFA;
@@ -52,6 +54,9 @@ Two other modes print only measurements:
     python3 chip_smoke.py --kernel-times   # one JSON line of kernel times
     python3 chip_smoke.py --develop-ab     # the develop kernel with one
                                            # stage of its edit stack cut out
+    python3 chip_smoke.py --bayer-ab       # the Bayer RAW kernel at other
+                                           # step heights and block sizes,
+                                           # and with one stage cut out
 
 A copy of this script placed in another checkout (for example the parent
 commit unpacked under build/) times that checkout's kernels with
@@ -94,6 +99,12 @@ BUCKET_HW = (4096, 6016)
 BAYER_HW = (4000, 6000)
 XTRANS_HW = (4160, 6240)
 NORTH_STAR_HW = (5504, 8256)
+# The Bayer kernel's edges: frames narrower than one 124-column strip or
+# one 16-row step, widths that are not a multiple of the strip or of 4
+# (scalar loads and stores), strips whose window lies inside the image
+# (16-byte loads), and a frame tall enough that a band walks several steps.
+BAYER_EDGE_HW = ((2, 2), (3, 5), (7, 9), (17, 65), (33, 130), (61, 133),
+                 (45, 255), (70, 380), (515, 8000))
 # The RAW batch's edit: sliders and sharpening, default curves (the
 # kernel's identity_oklch variant), as `cli batch` flags.
 RAW_FLAGS = ["--exposure", "0.5", "--contrast", "20", "--shadow", "15",
@@ -693,15 +704,19 @@ def phase_raw_kernel_vs_twin(dev, log):
     tone, full, stack = raw_edits()
     cam = raw_cam()
     wb = (1.9, 1.0, 1.5)
-    shapes = [(p, hw) for p in ("RGGB", "BGGR", "GRBG", "GBRG")
-              for hw in ((64, 512), (50, 300), (37, 150))]
-    shapes += [("XTRANS", (96, 768)), ("XTRANS", (100, 700)),
-               ("XTRANS", (12, 12)), ("XTRANS", (61, 133)),
-               ("RGGB", BAYER_HW), ("XTRANS", XTRANS_HW)]
+    # (pattern, (h, w), storage offset of the mosaic in floats)
+    shapes = [(p, hw, 0) for p in ("RGGB", "BGGR", "GRBG", "GBRG")
+              for hw in ((64, 512), (50, 300), (37, 150), *BAYER_EDGE_HW)]
+    shapes += [("RGGB", (70, 380), 1),
+               ("XTRANS", (96, 768), 0), ("XTRANS", (100, 700), 0),
+               ("XTRANS", (12, 12), 0), ("XTRANS", (61, 133), 0),
+               ("RGGB", BAYER_HW, 0), ("XTRANS", XTRANS_HW, 0)]
     worst = {"bayer": 0.0, "xtrans": 0.0}
-    for pattern, (h, w) in shapes:
-        xt = pattern == "XTRANS"
+    for pattern, (h, w), offset in shapes:
         mosaic = torch.from_numpy(rng.random((h, w), dtype=np.float32)).to(dev)
+        if offset:  # a contiguous view off the 16-byte grid: scalar loads
+            mosaic = torch.cat([mosaic.new_zeros(offset), mosaic.reshape(-1)])[
+                offset:].view(h, w)
         masks = np.zeros((3, h, w), np.uint8)
         masks[0] = 1
         for k, logit in enumerate(region_logits(h, w)[:2], start=1):
@@ -738,7 +753,8 @@ def phase_raw_kernel_vs_twin(dev, log):
                 check(dev_max < 3e-3, f"{what}: {dev_max:.3e} from the full "
                       "path (bound 3e-3)")
                 notes.append(f"identity_oklch {dev_max:.3e} from the full path")
-        log(f"phase 5: RAW {pattern} {h}x{w}: kernel == twin bit for bit in "
+        at = f" at storage offset {offset}" if offset else ""
+        log(f"phase 5: RAW {pattern} {h}x{w}{at}: kernel == twin bit for bit in "
             f"{len(cases)} cases (M=1/M=3 u8, sharpen 0/0.8, shortcuts "
             f"bit-identical to the general kernel; {'; '.join(notes)})")
         del mosaic, masks
@@ -909,12 +925,14 @@ def phase_raw_main_path(dev, log):
 
 def raw_op_count(pattern, sharpen_on):
     """f32 operations of the RAW kernel per output pixel before the edit
-    stack, counted as op_count counts them: WB 1; Malvar 50 (11 neighbour
-    sums, four 5-8-op filters, 7 selects, phase tests) or the X-Trans
-    residual demosaic 160 (gradients 4, two 7x7 separable energy sums 52,
-    two 1-D green NCs 32, 3 selects and d, two chroma NCs 62, phase tests
-    6); camera matrix + clip 21; unsharp 69 when the amount is not 0."""
-    demosaic = 160 if pattern == "XTRANS" else 50
+    stack, counted as op_count counts them: WB 1; Malvar 26 (a site
+    computes only its own phase's estimates: green sites 7 neighbour sums,
+    two 8-op filters and 2 selects; red and blue sites 9 sums, two 5-6-op
+    filters and 2 selects; the phase test) or the X-Trans residual demosaic
+    160 (gradients 4, two 7x7 separable energy sums 52, two 1-D green NCs
+    32, 3 selects and d, two chroma NCs 62, phase tests 6); camera matrix +
+    clip 21; unsharp 69 when the amount is not 0."""
+    demosaic = 160 if pattern == "XTRANS" else 26
     return 1 + demosaic + 21 + (69 if sharpen_on else 0)
 
 
@@ -1151,72 +1169,141 @@ AB_VARIANTS = {
         ("  const float tr = hi ? (t - 1.0f) / (t + 1.0f) : t;", "  const float tr = hi ? t - 1.0f : t;")],
     "without_vignette": [("  if (strength == 0.0f) return;", "  return;")],
 }
+# --bayer-ab: the Bayer RAW kernel built with other step heights, a
+# register cap for 5 resident blocks or other block sizes (each
+# bit-identical to the shipped build; their times chose the shipped one),
+# and with one stage cut out as
+# in --develop-ab (wrong output): the unsharp, Malvar and the camera
+# matrix, the vignette, the edit stack, and all four (the data movement
+# alone, beside a torch copy of the same bytes).
+_AB_BSH = "constexpr int BSW = 124, BSH = 16, BHALO = 4;"
+_AB_T128 = ("constexpr int kThreads = 256;", "constexpr int kThreads = 128;")
+_AB_MIN5 = ("__launch_bounds__(kThreads)\nbayer_kernel(",
+            "__launch_bounds__(kThreads, 5)\nbayer_kernel(")
+BAYER_AB_VARIANTS = {
+    "shipped": [],
+    "step8": [(_AB_BSH, _AB_BSH.replace("BSH = 16", "BSH = 8"))],
+    "step32": [(_AB_BSH, _AB_BSH.replace("BSH = 16", "BSH = 32"))],
+    "min_5_blocks": [_AB_MIN5],
+    "blocks_of_128_step8": [_AB_T128, (_AB_BSH, _AB_BSH.replace("BSH = 16", "BSH = 8"))],
+    "blocks_of_128": [_AB_T128],
+    "blocks_of_512": [("constexpr int kThreads = 256;", "constexpr int kThreads = 512;")],
+    "without_unsharp": [("  const float amt = tab[3];\n  const float strength",
+                         "  const float amt = 0.0f;\n  const float strength")],
+    "without_malvar_cam": [("        float cr, cg, cb;\n        cam_clip(cam, r, g, bb, cr, cg, cb);",
+                            "        const float cr = c, cg = c, cb = c;")],
+    "without_vignette": [("        rpf::vignette(r, g, b, strength, ay, rpf::pick(ax, j));\n", "")],
+    "without_edit_stack": [("        rpf::edit_stack<IDENTITY>(r, g, b, t, sel);\n", "")],
+}
+BAYER_AB_VARIANTS["data_movement_only"] = [
+    cut for k in ("without_unsharp", "without_malvar_cam", "without_vignette",
+                  "without_edit_stack") for cut in BAYER_AB_VARIANTS[k]]
 
 
-def develop_ab(dev, card, log, rounds=3):
-    """Times the develop kernel built with each of AB_VARIANTS on phase 4's
-    cases, the builds in turns (A B C ... C B A), beside each one's largest
-    deviation from the shipped build."""
+def ab_run(mod, source, fn_name, variants, cases, card, log, tag, rounds=3):
+    """Times ``cases`` ([(name, call)]) with ``mod``'s kernel library built
+    from a copy of csrc/ with each of ``variants`` (name -> [(exact text,
+    replacement)]; all nvcc runs at once), the builds in turns (A B C ... C
+    B A), beside each one's largest deviation from the shipped build."""
     import ctypes
     import pathlib
 
     import torch
 
-    from rawphotoforge_tpu_torch.core.params import pack_params
-    from rawphotoforge_tpu_torch.kernels import cuda_build, fused
+    from rawphotoforge_tpu_torch.kernels import cuda_build
 
-    fused.library()
-    shipped = fused._LIB
+    mod.library()
+    shipped = mod._LIB
     procs = {}
-    for name, subs in AB_VARIANTS.items():
-        src = pathlib.Path(cuda_build.BUILD_DIR) / "ab" / name
+    for name, subs in variants.items():
+        src = pathlib.Path(cuda_build.BUILD_DIR) / "ab" / tag / name
         src.mkdir(parents=True, exist_ok=True)
         texts = {f.name: f.read_text() for f in cuda_build.CSRC.iterdir()}
         for a, b in subs:
             check(any(a in t for t in texts.values()),
-                  f"--develop-ab: {a!r} is not in csrc/")
+                  f"--{tag}: {a!r} is not in csrc/")
             texts = {n: t.replace(a, b) for n, t in texts.items()}
         for n, t in texts.items():
             (src / n).write_text(t)
         procs[name] = (src / "lib.so", subprocess.Popen(
             [cuda_build._nvcc(), *cuda_build.NVCC_FLAGS, "-o", str(src / "lib.so"),
-             str(src / "develop.cu")], stdout=subprocess.PIPE,
+             str(src / source)], stdout=subprocess.PIPE,
             stderr=subprocess.STDOUT, text=True))
     libs = {}
     for name, (so, p) in procs.items():
         out = p.communicate()[0]
-        check(p.returncode == 0, f"--develop-ab: {name} did not build:\n{out}")
+        check(p.returncode == 0, f"--{tag}: {name} did not build:\n{out}")
         lib = ctypes.CDLL(str(so))
-        lib.rpf_develop_launch.argtypes = shipped.rpf_develop_launch.argtypes
-        lib.rpf_develop_launch.restype = ctypes.c_int
+        fn = getattr(lib, fn_name)
+        fn.argtypes = getattr(shipped, fn_name).argtypes
+        fn.restype = ctypes.c_int
         libs[name] = lib
-    planes, cases = develop_cases(dev)
     try:
-        for case, plist, masks, flags in cases:
-            params = pack_params(plist, extent=PHOTO_HW, device=dev)
-
-            def call():
-                return fused.develop_post_geo_fused(planes, params, masks, **flags)
-
+        for case, call in cases:
             times = {k: [] for k in libs}
             outs = {}
             order = list(libs) + list(reversed(libs))
             for _ in range(rounds):
                 for k in order:
-                    fused._LIB = libs[k]
+                    mod._LIB = libs[k]
                     times[k].append(time_events(call, reps=20))
             for k in libs:
-                fused._LIB = libs[k]
+                mod._LIB = libs[k]
                 outs[k] = call()
             torch.cuda.synchronize()
             for k in libs:
                 ts = sorted(times[k])
                 dev_max = (outs[k] - outs["shipped"]).abs().max().item()
-                log(f"develop-ab: {case}: {k}: median {ts[len(ts) // 2]:.4f} ms "
+                log(f"{tag}: {case}: {k}: median {ts[len(ts) // 2]:.4f} ms "
                     f"(min {ts[0]:.4f}, max {ts[-1]:.4f}; {len(ts)} windows of 20 "
                     f"launches); max abs {dev_max:.3e} from shipped [{card}]")
     finally:
-        fused._LIB = shipped
+        mod._LIB = shipped
+
+
+def develop_ab(dev, card, log):
+    """The develop kernel with each of AB_VARIANTS on phase 4's cases."""
+    from rawphotoforge_tpu_torch.core.params import pack_params
+    from rawphotoforge_tpu_torch.kernels import fused
+
+    planes, cases = develop_cases(dev)
+    calls = []
+    for case, plist, masks, flags in cases:
+        params = pack_params(plist, extent=PHOTO_HW, device=dev)
+        calls.append((case, lambda params=params, masks=masks, flags=flags:
+                      fused.develop_post_geo_fused(planes, params, masks, **flags)))
+    ab_run(fused, "develop.cu", "rpf_develop_launch", AB_VARIANTS, calls, card,
+           log, "develop-ab")
+
+
+def bayer_ab(dev, card, log):
+    """The RAW kernel with each of BAYER_AB_VARIANTS on phase 7's Bayer
+    cases."""
+    import torch
+
+    from rawphotoforge_tpu_torch.kernels import raw_pipeline as rp
+
+    rng = np.random.default_rng(SEED + 5)
+    calls = []
+    for pattern, (h, w) in RAW_FRAMES[:2]:
+        mosaic = torch.from_numpy(rng.random((h, w), dtype=np.float32)).to(dev)
+        for variant, edit, flags in raw_variants():
+            args = raw_args(dev, mosaic, edit)
+            calls.append((f"{pattern}_{w}x{h}_{variant}",
+                          lambda args=args, flags=flags, pattern=pattern:
+                          rp.raw_develop_fused(*args, pattern=pattern, **flags)))
+    ab_run(rp, "raw_develop.cu", "rpf_raw_develop_launch", BAYER_AB_VARIANTS,
+           calls, card, log, "bayer-ab")
+    # The kernel's bytes (the mosaic read, three planes written) moved by
+    # torch's copy kernel: a mosaic broadcast into a [3, H, W] output.
+    for h, w in (BAYER_HW, NORTH_STAR_HW):
+        src = torch.rand((h, w), device=dev).expand(3, h, w)
+        dst = torch.empty((3, h, w), device=dev)
+        ms = median_time(lambda: dst.copy_(src))
+        log(f"bayer-ab: RGGB_{w}x{h}: torch copy of the same bytes "
+            f"({16 * h * w / 1e6:.1f} MB): median {ms:.4f} ms "
+            f"({16 * h * w / ms / 1e9:.3f} TB/s) [{card}]")
+        del src, dst
 
 
 def main() -> int:
@@ -1268,6 +1355,9 @@ def main() -> int:
         return 0
     if "--develop-ab" in sys.argv:
         develop_ab(dev, card, log)
+        return 0
+    if "--bayer-ab" in sys.argv:
+        bayer_ab(dev, card, log)
         return 0
     phase_device_functions(dev, log)
     worst = phase_kernel_vs_twin(dev, log)

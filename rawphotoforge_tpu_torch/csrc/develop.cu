@@ -32,45 +32,22 @@
 #include <cuda_runtime.h>
 
 #include "edit_stack.cuh"
+#include "vec4.cuh"
 #include "wave.cuh"
 
 namespace {
+
+using rpf::load4;
+using rpf::pick;
+using rpf::put;
+using rpf::store4;
 
 constexpr int kCols = 32, kRows = 8, kPix = 4;
 constexpr int kThreads = kCols * kRows;
 constexpr int kBitRows = 32;  // mask rows held as bits; the rest are read
 
-__device__ __forceinline__ float pick(const float4& v, int j) {
-  return j == 0 ? v.x : (j == 1 ? v.y : (j == 2 ? v.z : v.w));
-}
-
-__device__ __forceinline__ void put(float4& v, int j, float x) {
-  v.x = j == 0 ? x : v.x;
-  v.y = j == 1 ? x : v.y;
-  v.z = j == 2 ? x : v.z;
-  v.w = j == 3 ? x : v.w;
-}
-
 __device__ __forceinline__ uint32_t pick(const uint4& v, int j) {
   return j == 0 ? v.x : (j == 1 ? v.y : (j == 2 ? v.z : v.w));
-}
-
-// Up to 4 consecutive floats from p (n of them; the rest are 0).
-__device__ __forceinline__ float4 load4(const float* __restrict__ p, bool full,
-                                        int n) {
-  if (full) return *reinterpret_cast<const float4*>(p);
-  float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-  for (int j = 0; j < n; ++j) put(v, j, p[j]);
-  return v;
-}
-
-__device__ __forceinline__ void store4(float* __restrict__ p, const float4& v,
-                                       bool full, int n) {
-  if (full) {
-    *reinterpret_cast<float4*>(p) = v;
-    return;
-  }
-  for (int j = 0; j < n; ++j) p[j] = pick(v, j);
 }
 
 // Which of 4 consecutive mask values are non-zero, as bits 0..3.
@@ -198,10 +175,6 @@ cudaError_t launch(const void* planes, const void* masks, const float* table,
   return cudaGetLastError();
 }
 
-bool aligned(const void* p, uintptr_t n) {
-  return reinterpret_cast<uintptr_t>(p) % n == 0;
-}
-
 // The edit stack's device functions whose form differs from the Pallas
 // kernel's (the OETF) or that replace a division, and the cube root, one
 // per element, for the exhaustive checks against their torch twins.
@@ -242,8 +215,9 @@ extern "C" int rpf_develop_launch(const void* planes, const void* masks,
   float* o = static_cast<float*>(out);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool f32 = mask_kind == 2;
-  const int vec = W % 4 == 0 && aligned(planes, 16) && aligned(out, 16) &&
-                  (masks == nullptr || aligned(masks, f32 ? 16 : 4));
+  const int vec = W % 4 == 0 && rpf::aligned(planes, 16) &&
+                  rpf::aligned(out, 16) &&
+                  (masks == nullptr || rpf::aligned(masks, f32 ? 16 : 4));
   if (identity) {
     return static_cast<int>(
         f32 ? launch<true, float>(planes, masks, tab, o, M, S, H, W,

@@ -14,16 +14,20 @@ sRGB out, 16 B/px: ~0.115 ms for 24 MP at 3.35 TB/s. As with the develop
 kernel, the exact arithmetic (IEEE divisions and square roots, no
 contraction) is what sets the time.
 
-Design: a block stages its haloed mosaic window in shared memory (Bayer:
-one 16x64 output tile + 4 px; X-Trans: a 48-column strip + 12 px, walked
-down a band in steps of 24 rows that keep the window, green-estimate and
-plane rows the next step shares), computes the
-demosaiced, matrix-clipped planes over its outputs plus the sharpen's 2-px
-margin, then runs the per-pixel tail. There is no tile-multiple padding:
-the block reads mirror (Bayer) or periodic (X-Trans) indices where the
-Pallas wrapper padded, and its CFA phases are global, so outputs do not
-depend on any tile size. The ``tile_h``/``tile_w`` arguments are validated
-as the JAX wrapper validates them, and do not change the result.
+Design: both CFAs walk column strips in steps of rows, keeping the window
+and plane rows the next step shares, one wave of resident blocks. Bayer: a
+124-column strip (its 128 plane columns are one warp, 4 a lane), 16-row
+steps, the strips' steps split evenly over the wave; the window loads as
+16-byte vectors inside the image and at mirror indices over its border;
+Malvar takes one branch per warp and element; the unsharp sums each plane
+column's 5 rows once and shares them across lanes by a shuffle, in the
+twin's order; 4 outputs a lane with float4 stores. X-Trans: a 48-column
+strip + 12 px, 24-row steps that keep the window, green-estimate and plane
+rows. There is no tile-multiple padding: the kernel reads mirror (Bayer)
+or periodic (X-Trans) indices where the Pallas wrapper padded, and its CFA
+phases are global, so outputs do not depend on any strip or step size. The
+``tile_h``/``tile_w`` arguments are validated as the JAX wrapper validates
+them, and do not change the result.
 
 ``raw_develop_fused`` takes the twin for a CPU tensor and the kernel for a
 CUDA tensor; there is no fallback from one to the other.

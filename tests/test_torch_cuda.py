@@ -17,6 +17,8 @@ from rawphotoforge_tpu_torch.core.params import (
 from rawphotoforge_tpu_torch.engine.editor import FULL, LOW, PhotoEditor
 from rawphotoforge_tpu_torch.kernels import fused
 
+from chip_smoke import BAYER_EDGE_HW
+
 pytestmark = pytest.mark.cuda
 
 
@@ -200,6 +202,47 @@ def test_xtrans_kernel_at_edge_shapes(dev, h, w):
     ref = rp.raw_develop_fused_ref(mosaic, (1.8, 1.0, 1.4), RAW_CAM, params,
                                    np.float32(0.8), pattern="XTRANS", masks=masks)
     assert torch.equal(out, ref)
+
+
+def _bayer_bit_identical(dev, mosaic, pattern):
+    """M=1 with sharpen 0 and M=3 (u8 masks) with sharpen 0.8: one launch
+    each, bit for bit against the twin."""
+    from rawphotoforge_tpu_torch.kernels import raw_pipeline as rp
+
+    h, w = mosaic.shape
+    _, masks = _inputs(dev, h, w, 3)
+    for m, sharpen in ((1, 0.0), (3, 0.8)):
+        params = pack_params(_params()[:m], extent=(h, w), device=dev)
+        args = (mosaic, (1.8, 1.0, 1.4), RAW_CAM, params, np.float32(sharpen))
+        mk = masks if m > 1 else None
+        before = rp.KERNEL_LAUNCHES["bayer_kernel"]
+        out = rp.raw_develop_fused(*args, pattern=pattern, masks=mk)
+        torch.cuda.synchronize()
+        assert rp.KERNEL_LAUNCHES["bayer_kernel"] == before + 1
+        ref = rp.raw_develop_fused_ref(*args, pattern=pattern, masks=mk)
+        assert torch.equal(out, ref), (m, sharpen)
+
+
+@pytest.mark.parametrize("h,w", BAYER_EDGE_HW)
+@pytest.mark.parametrize("pattern", ["RGGB", "BGGR", "GRBG", "GBRG"])
+def test_bayer_kernel_at_edge_shapes(dev, pattern, h, w):
+    """The Bayer strip walk at its edges: frames narrower than a 124-column
+    strip or a 16-row step, widths that are not a multiple of the strip or
+    of 4, inner strips (16-byte loads), a band of several steps."""
+    rng = np.random.default_rng(13)
+    mosaic = torch.from_numpy(rng.random((h, w), dtype=np.float32)).to(dev)
+    _bayer_bit_identical(dev, mosaic, pattern)
+
+
+def test_bayer_kernel_off_the_16_byte_grid(dev):
+    """A contiguous mosaic view one float past a 16-byte boundary takes the
+    scalar loads and stays bit for bit."""
+    h, w = 70, 380
+    rng = np.random.default_rng(17)
+    flat = torch.from_numpy(rng.random(h * w + 1, dtype=np.float32)).to(dev)
+    mosaic = flat[1:].view(h, w)
+    assert mosaic.is_contiguous() and mosaic.data_ptr() % 16 == 4
+    _bayer_bit_identical(dev, mosaic, "GRBG")
 
 
 def test_raw_kernel_never_runs_the_twin_for_cuda(dev, monkeypatch):

@@ -80,6 +80,12 @@ PALLAS_CASES = {
     "gbrg_50x300": ("GBRG", 50, 300, 0.5, False, (16, 128)),
     "bggr_m2": ("BGGR", 64, 256, 0.5, True, (16, 128)),
     "xtrans_m2_sharpen": ("XTRANS", 96, 768, 0.8, True, (48, 384)),
+    # Across the CUDA Bayer kernel's 124-column strips and 16-row steps,
+    # with ragged and narrow edges.
+    "rggb_18x130_sharpen": ("RGGB", 18, 130, 0.8, False, (16, 128)),
+    "grbg_m2_70x260": ("GRBG", 70, 260, 0.5, True, (16, 128)),
+    "bggr_34x133_sharpen": ("BGGR", 34, 133, 0.8, False, (16, 128)),
+    "gbrg_6x9": ("GBRG", 6, 9, 0.5, False, (16, 128)),
 }
 
 
