@@ -47,7 +47,21 @@ Phases (any failure raises, and the script exits non-zero):
     X-Trans 26 MP; batch flags and full curves)
     beside its bounds and the twin's time; the batch's MPix/s end to end,
     its per-image stage times (each stage's function wrapped here between
-    two synchronizes) and the card's idle share under the profiler.
+    two synchronizes) and the card's idle share under the profiler;
+ 8. the vendor path: a 24 MP Canon CR2 (odd sensor borders, a lens the
+    bundled database knows), two 24 MP Sony ARW2 (one whose embedded
+    preview matches its sensor data, one whose preview is another image),
+    a 26 MP X-Trans Fujifilm RAF, a 20 MP plain Panasonic RW2, a small RAW4
+    RW2 and a 24 MP DNG with WarpRectilinear + FixVignetteRadial, written
+    with tests/torch_fixtures.py; `cli batch` of them and the
+    lens-corrected editor open on the card (one RAW-kernel launch per
+    Bayer or X-Trans file, one develop-kernel launch for the warped DNG,
+    the refused ARW2's preview and the editor's FULL render); each kernel
+    against its twin on every vendor-decoded mosaic, the JPEG sizes, the
+    refused ARW2 opening from its preview, the warp on the card against
+    the CPU, the lens-corrected render against the exact-LUT anchor; and
+    per-file stage times (parse + decode, the gate, upload, kernels,
+    encode).
 
 Two other modes print only measurements:
 
@@ -1092,6 +1106,337 @@ def phase_raw_timing(dev, card, in_dir, tmp, log):
     return results
 
 
+# -- vendor containers, the decode gate, lens correction ------------------------
+
+# Phase 8's files: (name, kind, what the batch runs for it).
+VENDOR_FILES = (
+    ("canon24.cr2", "CR2 6000x4000 active, odd borders (BGGR), lens EF 50mm",
+     "bayer_kernel"),
+    ("sony24.arw", "ARW2 6016x4000, matching preview (gate passes)",
+     "bayer_kernel"),
+    ("sony24_bad.arw", "ARW2 6016x4000, mismatched preview (gate refuses)",
+     "preview"),
+    ("fuji26.raf", "RAF X-Trans 6240x4160", "xtrans_kernel"),
+    ("pana20.rw2", "RW2 plain 16-bit 5184x3888, sensor borders", "bayer_kernel"),
+    ("pana_raw4.rw2", "RW2 RAW4 448x320, matching preview", "bayer_kernel"),
+    ("warp24.dng", "DNG 6000x4000, WarpRectilinear + FixVignetteRadial",
+     "develop"),
+)
+ARW2_HW = (4000, 6016)   # a 24 MP Sony sensor (width a multiple of 32)
+RW2_HW = (3888, 5184)    # a 20 MP Panasonic sensor's active area
+RAW4_HW = (320, 448)
+VENDOR_WARP = ([[0.97, 0.04, -0.01, 0.0, 0.001, -0.001]], (0.5, 0.5))
+VENDOR_VIGNETTE = ((0.2, -0.05, 0.0, 0.0, 0.0), (0.5, 0.5))
+BAD_PREVIEW_HW = (1000, 1504)
+
+
+def write_vendor_dir(in_dir, log):
+    """Phase 8's input, written with the port's writers (tests/
+    torch_fixtures.py): full-size vendor RAWs of seeded scenes; the RAW4
+    file is small (its fixture encoder is a Python loop). Returns
+    {name: (path, upright (h, w) of its JPEG)}."""
+    import dataclasses
+
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    import torch_fixtures as fx
+
+    from rawphotoforge_tpu_torch.io import dng, raw as rawio
+
+    rng = np.random.default_rng(SEED + 8)
+    files = {}
+
+    def put(name, data, upright, t0):
+        path = os.path.join(in_dir, name)
+        with open(path, "wb") as f:
+            f.write(data)
+        files[name] = (path, upright)
+        log(f"phase 8: wrote {name}: {len(data)} bytes in "
+            f"{time.perf_counter() - t0:.2f} s")
+
+    h, w = BAYER_HW
+    t0 = time.perf_counter()
+    border = (73, 51, 73 + w - 1, 51 + h - 1)  # left, top, right, bottom
+    sensor = fx.cr2_sensor(rng, h + 56, w + 96, border)
+    slice_w = (w + 96) // 4 // 2 * 2  # three slices of this, then the rest
+    put("canon24.cr2", fx.build_cr2(
+        sensor, slices=(3, slice_w, w + 96 - 3 * slice_w), sensor_border=border,
+        lens_model="EF 50mm f/1.8 II", fnumber=2.8), (h, w), t0)
+
+    t0 = time.perf_counter()
+    codes = fx.arw2_codes(rng, *ARW2_HW)
+    good, _ = fx.arw2_file(codes, preview="match")
+    put("sony24.arw", good, ARW2_HW, t0)
+    t0 = time.perf_counter()
+    bad, _ = fx.arw2_file(codes, preview=fx.noise_preview(SEED, *BAD_PREVIEW_HW))
+    put("sony24_bad.arw", bad, BAD_PREVIEW_HW, t0)
+    del codes, good, bad
+
+    t0 = time.perf_counter()
+    xh, xw = XTRANS_HW
+    xt = rawio.synthetic_raw(fx.scene(rng, xh, xw), "XTRANS", black_level=0,
+                             wb_gains=(1.7, 1.0, 1.3))
+    put("fuji26.raf", fx.raf_file(xt.mosaic, "XTRANS"), (xh, xw), t0)
+    del xt
+
+    t0 = time.perf_counter()
+    ph, pw = RW2_HW
+    pana = rawio.synthetic_raw(fx.scene(rng, ph + 8, pw + 16), "GRBG",
+                               black_level=157, white_level=4095,
+                               wb_gains=(1.8, 1.0, 1.4))
+    put("pana20.rw2", fx.rw2_file(pana.mosaic, "GRBG",
+                                  borders=(4, 8, ph + 4, pw + 8)), (ph, pw), t0)
+    del pana
+
+    t0 = time.perf_counter()
+    # A smooth scene: RAW4's fixture encoder needs same-colour neighbours
+    # within 127 levels of each other.
+    raw4 = rawio.synthetic_raw(fx.scene(rng, *RAW4_HW, texture=0.01), "RGGB",
+                               black_level=157, white_level=4095,
+                               wb_gains=(1.8, 1.0, 1.4))
+    put("pana_raw4.rw2", fx.rw2_file(raw4.mosaic, "RGGB", raw_format=4,
+                                     preview=fx.matching_preview(raw4, 256)),
+        RAW4_HW, t0)
+
+    t0 = time.perf_counter()
+    warp = rawio.synthetic_raw(fx.scene(rng, h, w), "RGGB", xyz_to_cam=XYZ_TO_CAM)
+    warp = dataclasses.replace(warp, exif={"Make": "Synthetic", "Model": "phone"})
+    put("warp24.dng", dng.write_dng(warp, opcode_list_3=fx.opcode_list3(
+        warp=VENDOR_WARP, vignette=VENDOR_VIGNETTE)), (h, w), t0)
+    return files
+
+
+def phase_vendor_main_path(dev, log):
+    """Phase 8: `cli batch` of the vendor directory and the lens-corrected
+    editor open on the card, with every launch counter zeroed just before
+    and read just after; then each kernel against its twin on every
+    vendor-decoded mosaic, the JPEG sizes, the gate-refused ARW2 opening
+    from its preview, the warp on the card against the CPU, and the
+    lens-corrected FULL render against the exact-LUT anchor."""
+    import dataclasses
+
+    import torch
+    from PIL import Image
+
+    from rawphotoforge_tpu_torch.app import cli
+    from rawphotoforge_tpu_torch.core.params import EditParameters, pack_params
+    from rawphotoforge_tpu_torch.engine.editor import FULL, PhotoEditor
+    from rawphotoforge_tpu_torch.io import raw as rawio
+    from rawphotoforge_tpu_torch.kernels import fused, raw_pipeline as rp
+    from rawphotoforge_tpu_torch.ops import demosaic as dm
+    from rawphotoforge_tpu_torch.ops.lenscorr import warp_rectilinear
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_vendor_")
+    in_dir, out_dir = os.path.join(tmp, "in"), os.path.join(tmp, "out")
+    os.makedirs(in_dir)
+    files = write_vendor_dir(in_dir, log)
+    cr2_path = files["canon24.cr2"][0]
+    # The editor's edit: bench_edit's curves (no identity_oklch shortcut,
+    # so the kernel render and the exact-LUT anchor compute the same stack).
+    lens_edit = EditParameters()
+    bench_edit(lens_edit)
+
+    twin_calls = [0]
+    real_twins = (rp.raw_develop_fused_ref, fused.develop_post_geo_fused_ref)
+
+    def counted(fn):
+        def twin(*a, **k):
+            twin_calls[0] += 1
+            return fn(*a, **k)
+        return twin
+
+    rp.raw_develop_fused_ref = counted(real_twins[0])
+    fused.develop_post_geo_fused_ref = counted(real_twins[1])
+    rp.KERNEL_LAUNCHES = dict.fromkeys(rp.KERNEL_LAUNCHES, 0)  # run starts
+    fused.LAUNCHES = 0
+    t0 = time.perf_counter()
+    try:
+        rc, out = run_batch(in_dir, out_dir, dev)
+        ed = PhotoEditor.open(cr2_path, lens_correct=True, device=dev)
+        ed.load_preset_json(json.dumps({"version": 1, "crop": None, "masks": [
+            {"name": "main", "params": lens_edit.to_json()}]}))
+        lens_full = ed.apply(FULL)
+        torch.cuda.synchronize()
+    finally:
+        rp.raw_develop_fused_ref, fused.develop_post_geo_fused_ref = real_twins
+    counts = dict(rp.KERNEL_LAUNCHES, develop=fused.LAUNCHES)  # run ends here
+    t_main = time.perf_counter() - t0
+    check(rc == 0, f"cli batch of the vendor files exited {rc}")
+    want = {"bayer_kernel": 0, "xtrans_kernel": 0, "develop": 1}
+    for _, _, route in VENDOR_FILES:
+        want["develop" if route == "preview" else route] += 1
+    check(counts == want, f"vendor path launches {counts} (want {want})")
+    check(twin_calls[0] == 0, f"a twin ran {twin_calls[0]} times on the "
+          "vendor path")
+    log(f"phase 8: vendor path (cli batch of {len(files)} files + the "
+        f"lens-corrected editor open and FULL render of canon24.cr2) in "
+        f"{t_main:.2f} s; launches {counts}, twin calls {twin_calls[0]}")
+    rate = [ln for ln in out.splitlines() if "MPix/s end-to-end" in ln]
+    check(rate, "cli batch printed no throughput line")
+    log(f"phase 8: {rate[0].strip()}")
+
+    # The mismatched ARW2: refused by the gate, developed from its preview
+    # by the batch and opened from it by the editor, loudly.
+    bad_line = [ln for ln in out.splitlines() if "sony24_bad.arw" in ln]
+    check(bad_line and "embedded preview" in bad_line[0]
+          and "correlation gate" in bad_line[0],
+          f"the mismatched ARW2's batch line: {bad_line}")
+    bad_ed = PhotoEditor.open(files["sony24_bad.arw"][0], device=dev)
+    check(bad_ed.opened_from_preview is not None
+          and "correlation gate" in bad_ed.opened_from_preview,
+          f"editor opened sony24_bad.arw with {bad_ed.opened_from_preview!r}")
+    check(bad_ed.shape == BAD_PREVIEW_HW, f"preview session {bad_ed.shape}")
+    log(f"phase 8: sony24_bad.arw refused by the gate and opened from its "
+        f"{BAD_PREVIEW_HW[1]}x{BAD_PREVIEW_HW[0]} preview (batch and editor): "
+        f"{bad_ed.opened_from_preview}")
+    del bad_ed
+
+    # Every JPEG decodes at its upright size.
+    for name, (path, (h, w)) in files.items():
+        jpg = os.path.join(out_dir, os.path.splitext(name)[0] + ".jpg")
+        with Image.open(jpg) as im:
+            check(im.size == (w, h), f"{jpg}: {im.size}, want {(w, h)}")
+    log(f"phase 8: all {len(files)} JPEGs decode at their upright sizes")
+
+    # Each kernel against its twin on every vendor-decoded mosaic, with the
+    # batch's edit and flags (these launches are outside the counted run).
+    flags = _parse_flags(RAW_FLAGS)
+    edit = cli._params_from_args(flags)
+    db, doc = cli._curve_flags(edit)
+    worst = {"bayer_kernel": 0.0, "xtrans_kernel": 0.0}
+    for name, kind, route in VENDOR_FILES:
+        if route not in worst:
+            continue
+        with open(files[name][0], "rb") as f:
+            raw = rawio.with_effective_wb(rawio.parse_raw(f.read()))
+        h, w = raw.mosaic.shape
+        mos01 = rawio.normalized_mosaic(raw, raw.mosaic, dev)
+        args = (mos01, raw.wb_gains, rawio.cam2srgb_for(raw),
+                pack_params([edit], extent=(h, w), build_luts=False, device=dev),
+                np.float32(edit.sharpness / 100.0 * 2.0))
+        kw = dict(pattern=raw.pattern, default_bright_curves=db,
+                  default_oklch_curves=doc, identity_oklch=doc)
+        out_k = rp.raw_develop_fused(*args, **kw)
+        torch.cuda.synchronize()
+        ref = rp.raw_develop_fused_ref(*args, **kw)
+        worst[route] = max(worst[route], float((out_k - ref).abs().max().item()))
+        bit_identical(out_k, ref, f"{name} {route} vs twin")
+        log(f"phase 8: {name} ({kind}): {raw.pattern} {w}x{h}, {route} == twin "
+            f"bit for bit")
+        del mos01, args, out_k, ref
+    torch.cuda.empty_cache()
+
+    # The warped DNG's generic route: the warp on the card against the CPU
+    # on the same demosaiced planes, and the develop kernel against its
+    # twin on the warped planes.
+    with open(files["warp24.dng"][0], "rb") as f:
+        wraw = rawio.with_effective_wb(rawio.parse_raw(f.read()))
+    check(wraw.warp_rectilinear is not None and wraw.vignette_radial is not None,
+          "warp24.dng lost its OpcodeList3")
+    planes = dm.develop_raw(rawio.normalized_mosaic(wraw, wraw.mosaic, dev),
+                            wraw.wb_gains, rawio.cam2srgb_for(wraw),
+                            pattern=wraw.pattern)
+    warped = warp_rectilinear(planes, *wraw.warp_rectilinear)
+    warped_cpu = warp_rectilinear(planes.cpu(), *wraw.warp_rectilinear)
+    werr = compare(warped.cpu(), warped_cpu, what="warp card vs CPU")
+    h, w = wraw.mosaic.shape
+    packed = pack_params([edit], extent=(h, w), build_luts=False, device=dev)
+    kw = dict(main_mask_all_ones=True, default_bright_curves=db,
+              default_oklch_curves=doc, identity_oklch=doc)
+    out_k = fused.develop_post_geo_fused(warped, packed, None, **kw)
+    torch.cuda.synchronize()
+    bit_identical(out_k, fused.develop_post_geo_fused_ref(warped, packed, None, **kw),
+                  "warp24.dng develop kernel vs twin")
+    log(f"phase 8: warp24.dng: WarpRectilinear on the card vs the CPU on the "
+        f"same planes: max abs err {werr:.3e} (assert_close); the develop "
+        f"kernel on the warped planes == twin bit for bit")
+    del planes, warped, warped_cpu, out_k
+
+    # The lens-corrected editor: the profile applied, and its FULL kernel
+    # render against the exact-LUT anchor.
+    check(ed.applied_lens_profile is not None
+          and "50mm" in ed.applied_lens_profile,
+          f"lens profile {ed.applied_lens_profile!r}")
+    plain = PhotoEditor.open(cr2_path, device=dev)
+    moved = float((ed._original_at(FULL) - plain._original_at(FULL)).abs().max())
+    check(moved > 1e-3, f"lens correction moved the original by {moved:.3e}")
+    del plain
+    ed.use_kernel = False
+    lens_err = compare(lens_full, ed.apply(FULL),
+                       what="lens-corrected FULL kernel vs exact-LUT anchor")
+    log(f"phase 8: canon24.cr2 with lens_correct=True: profile "
+        f"{ed.applied_lens_profile!r} (approximate {ed.applied_lens_approximate}),"
+        f" original moved by up to {moved:.3e}; FULL kernel render vs exact-LUT "
+        f"anchor: max abs err {lens_err:.3e} (assert_close)")
+    del ed, lens_full
+    torch.cuda.empty_cache()
+    return counts, worst, files, tmp
+
+
+def staged_vendor_files(files, tmp, dev, card, log):
+    """`cli batch` of each vendor file alone, with the function of each
+    stage wrapped between two synchronizes: per-file host ms of the parse +
+    decode and of the decode gate, the upload, the kernels, the YCbCr
+    fetch and the JPEG encode."""
+    import torch
+
+    from rawphotoforge_tpu_torch import native
+    from rawphotoforge_tpu_torch.io import jpegenc, raw as rawio
+    from rawphotoforge_tpu_torch.kernels import fused, raw_pipeline as rp
+    from rawphotoforge_tpu_torch.ops import demosaic as dm, lenscorr
+
+    stages = ((rawio, "parse_raw", "parse+decode"),
+              (rawio, "verify_memory_derived_decode", "gate"),
+              (rawio, "decode_embedded_preview", "preview decode"),
+              (rawio, "normalized_mosaic", "upload+normalize"),
+              (rp, "raw_develop_fused", "RAW kernel"),
+              (dm, "develop_raw", "demosaic"),
+              (lenscorr, "warp_rectilinear", "warp"),
+              (fused, "develop_post_geo_fused", "develop kernel"),
+              (jpegenc, "to_ycc420_u8", "YCbCr+fetch"),
+              (native, "jpeg_encode_ycc420", "JPEG encode"))
+    for name, (path, _) in files.items():
+        one = os.path.join(tmp, "one_" + name.replace(".", "_"))
+        os.makedirs(one)
+        os.symlink(path, os.path.join(one, name))
+        stage_ms, real = {}, []
+
+        def wrap(mod, attr, stage):
+            fn = getattr(mod, attr)
+
+            def timed(*a, **k):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                try:
+                    return fn(*a, **k)
+                finally:
+                    torch.cuda.synchronize()
+                    stage_ms[stage] = stage_ms.get(stage, 0.0) + (
+                        time.perf_counter() - t) * 1e3
+
+            real.append((mod, attr, fn))
+            setattr(mod, attr, timed)
+
+        for mod, attr, stage in stages:
+            wrap(mod, attr, stage)
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            rc, _ = run_batch(one, one + "_out", dev)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        finally:
+            for mod, attr, fn in real:
+                setattr(mod, attr, fn)
+        check(rc == 0, f"cli batch of {name} alone exited {rc}")
+        # parse_raw runs the gate inside it; the parse + decode is the rest.
+        stage_ms["parse+decode"] = stage_ms.get("parse+decode", 0.0) - stage_ms.get(
+            "gate", 0.0)
+        stage_ms["rest"] = wall - sum(v for k, v in stage_ms.items())
+        log(f"phase 8: {name} alone, ms: " + ", ".join(
+            f"{k} {v:.2f}" for k, v in stage_ms.items()) + f"; wall {wall:.2f} "
+            f"[{card}]")
+
+
 def median_time(fn, windows=5, reps=20):
     """The median over ``windows`` CUDA-event windows of ``reps`` launches."""
     return sorted(time_events(fn, reps=reps) for _ in range(windows))[windows // 2]
@@ -1369,6 +1714,19 @@ def main() -> int:
     raw_launches, raw_dir, raw_tmp = phase_raw_main_path(dev, log)
     raw_timing = phase_raw_timing(dev, card, raw_dir, raw_tmp, log)
     shutil.rmtree(raw_tmp, ignore_errors=True)
+    vendor_launches, vendor_worst, vendor_files, vendor_tmp = (
+        phase_vendor_main_path(dev, log))
+    staged_vendor_files(vendor_files, vendor_tmp, dev, card, log)
+    shutil.rmtree(vendor_tmp, ignore_errors=True)
+    # Each kernel's launches, summed over the main paths that drive it (each
+    # counted from zero just before its path and read just after).
+    log(f"launches by path: develop frame {launches}, RAW batch {raw_launches}, "
+        f"vendor path {vendor_launches}")
+    launches += vendor_launches["develop"]
+    for k in raw_launches:
+        raw_launches[k] += vendor_launches[k]
+        raw_worst[k.split("_")[0]] = max(raw_worst[k.split("_")[0]],
+                                         vendor_worst[k])
 
     main_case = timing["m4_regional"]
     bayer_case = raw_timing[f"RGGB_{BAYER_HW[1]}x{BAYER_HW[0]}_batch_flags"]

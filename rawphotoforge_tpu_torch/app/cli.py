@@ -7,9 +7,11 @@ Usage:
   python -m rawphotoforge_tpu_torch.app.cli batch IN_DIR OUT_DIR
       [edit flags] [--device cuda|cpu]
 
-``batch`` of a directory of RAW files develops each one through the
-one-pass RAW kernel (``kernels/raw_pipeline``) and writes JPEGs through
-the dense wire (``io/jpegenc``); other inputs go through the editor.
+``batch`` of a directory of RAW files (DNG, CR2, ARW, RW2, RAF, ...)
+develops each one through the one-pass RAW kernel (``kernels/raw_pipeline``)
+— a DNG with OpcodeList3 warps through demosaic, warp and the develop
+kernel — and writes JPEGs through the dense wire (``io/jpegenc``); other
+inputs, and ``--lens-correct``, go through the editor.
 
 Edit flags mirror the UI sliders: exposure EV in [-6, 6]; all other
 sliders integer [-100, 100]; curves as comma-separated control points
@@ -27,7 +29,7 @@ import time
 import numpy as np
 
 from .._device import resolve_device, synchronize
-from .._errbase import NotPortedError, PhotoEditorError
+from .._errbase import PhotoEditorError
 from ..core.params import (BRIGHTNESS, HUE, SATURATION, LIGHTNESS,
                            EditParameters, pack_params)
 from ..engine.editor import FULL, PhotoEditor
@@ -79,7 +81,11 @@ def _add_edit_flags(p: argparse.ArgumentParser):
                    help="print the 4x256 histogram summary")
     p.add_argument("--lens-correct", nargs="?", const="auto", default=None,
                    choices=["auto", "calibrated-only"],
-                   help="lens-profile correction (not ported yet)")
+                   help="auto-apply a lens profile matched from EXIF; "
+                        "'calibrated-only' skips the bundled approximate "
+                        "profiles (only real lensfun DBs via --lens-db)")
+    p.add_argument("--lens-db", type=str, action="append", default=None,
+                   help="extra lensfun XML file/dir (repeatable)")
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device of the session (default: the card)")
 
@@ -118,10 +124,6 @@ def _apply_edit_flags(ed: PhotoEditor, args):
 
 
 def cmd_develop(args) -> int:
-    if args.lens_correct:
-        raise PhotoEditorError(
-            "--lens-correct is not ported yet (ROADMAP.md, still to port: "
-            "ops/lenscorr and io/lensdb)")
     if args.output.lower().endswith(".dng"):
         raise PhotoEditorError(
             "the .dng HDR export is not ported yet (ROADMAP.md, still to "
@@ -137,8 +139,15 @@ def cmd_develop(args) -> int:
             "display format (.jpg/.png/.webp/.tif/.ppm)")
     t0 = time.perf_counter()
     ed = PhotoEditor.open(args.input, use_kernel=not args.exact_path,
-                          device=args.device)
+                          lens_correct=args.lens_correct,
+                          lens_db_paths=args.lens_db, device=args.device)
     t_load = time.perf_counter() - t0
+    if ed.opened_from_preview:
+        print(f"WARNING: sensor data not decodable "
+              f"({ed.opened_from_preview}); editing the embedded "
+              f"camera-rendered JPEG preview instead")
+    if args.lens_correct:
+        print(f"lens profile: {_lens_note(ed)}")
     _apply_edit_flags(ed, args)
     t1 = time.perf_counter()
     ed.apply(FULL, cropped=False)
@@ -162,6 +171,18 @@ def cmd_develop(args) -> int:
             peak = int(np.argmax(row))
             print(f"  hist {name}: peak bin {peak}, mass {int(row.sum())}")
     return 0
+
+
+def _lens_note(ed) -> str:
+    """The applied lens profile with its provenance: a bundled approximate
+    correction must be told apart from a calibrated lensfun profile."""
+    if not ed.applied_lens_profile:
+        return "no match"
+    if ed.applied_lens_approximate:
+        return (f"{ed.applied_lens_profile} (APPROXIMATE bundled "
+                "profile, not calibrated data; use --lens-db with a real "
+                "lensfun DB or --lens-correct calibrated-only)")
+    return ed.applied_lens_profile
 
 
 def _params_from_args(args) -> EditParameters:
@@ -216,13 +237,17 @@ def edit_planes(planes, edit: EditParameters, extent):
 def raw_fast_render(raw, edit: EditParameters, device):
     """One RAW of the batch fast path -> its sRGB render [3, H, W] after
     DefaultCrop and orientation. A Bayer or X-Trans mosaic takes the
-    one-pass RAW kernel (one launch); LinearRaw data, and a DefaultCrop
-    under a vignette or sharpen (those must see the cropped frame, as
-    ``develop`` does), take the generic demosaic + develop kernel."""
+    one-pass RAW kernel (one launch); LinearRaw data, a DNG with
+    OpcodeList3 warps (they run between the demosaic and the edit stack),
+    and a DefaultCrop under a vignette or sharpen (those must see the
+    cropped frame, as ``develop`` does) take the generic demosaic +
+    develop kernel. As in the JAX package's batch, an OpcodeList3 radial
+    vignette is not applied here (``develop`` applies it)."""
     from ..io.raw import cam2srgb_for, normalized_mosaic, with_effective_wb
     from ..kernels.raw_pipeline import raw_develop_fused
     from ..ops import demosaic as dm
     from ..ops.geometry import orient_exif
+    from ..ops.lenscorr import warp_fisheye, warp_rectilinear
 
     raw = with_effective_wb(raw)
     db, doc = _curve_flags(edit)
@@ -231,9 +256,8 @@ def raw_fast_render(raw, edit: EditParameters, device):
     cam = cam2srgb_for(raw)
     crop_first = raw.default_crop is not None and (
         edit.vignette != 0 or edit.sharpness != 0)
-    if raw.warp_rectilinear is not None or raw.warp_fisheye is not None:
-        raise NotPortedError("DNG OpcodeList3 warps", "ops/lenscorr")
-    if raw.pattern != "RGB" and not crop_first:
+    warped = raw.warp_rectilinear is not None or raw.warp_fisheye is not None
+    if raw.pattern != "RGB" and not warped and not crop_first:
         packed = pack_params([edit], extent=(h, w), build_luts=False,
                              device=device)
         srgb = raw_develop_fused(
@@ -247,6 +271,10 @@ def raw_fast_render(raw, edit: EditParameters, device):
         else:
             planes = dm.develop_raw(mos01, raw.wb_gains, cam,
                                     pattern=raw.pattern)
+        if raw.warp_rectilinear is not None:
+            planes = warp_rectilinear(planes, *raw.warp_rectilinear)
+        if raw.warp_fisheye is not None:
+            planes = warp_fisheye(planes, *raw.warp_fisheye)
         if crop_first:
             cx, cy, cw, ch = raw.default_crop
             srgb = edit_planes(planes[:, cy : cy + ch, cx : cx + cw], edit,
@@ -278,7 +306,8 @@ def _batch_raw_fast_path(paths, args) -> int:
         try:
             raw = parse_raw(data)
         except PhotoEditorError as e:
-            # Sensor data the port cannot decode: develop the embedded
+            # Sensor data that cannot decode (a vendor entropy codec, or a
+            # decode the embedded-preview gate refuses): develop the
             # camera-rendered preview instead of aborting the batch.
             res = decode_embedded_preview(data, dev)
             if res is None:
@@ -316,8 +345,6 @@ def cmd_batch(args) -> int:
         print("batch exports JPEG; --bit-depth 16 is develop-only "
               "(use develop with a .png output)", file=sys.stderr)
         return 1
-    if args.lens_correct:
-        raise NotPortedError("--lens-correct", "ops/lenscorr and io/lensdb")
     paths = sorted(
         p for p in glob.glob(os.path.join(args.input_dir, "*"))
         if os.path.splitext(p)[1].lower() in image_io.SUPPORTED_EXTENSIONS
@@ -327,12 +354,13 @@ def cmd_batch(args) -> int:
         return 1
     os.makedirs(args.output_dir, exist_ok=True)
 
-    # The one-pass RAW kernel has no lens-distortion (geometry) stage:
-    # with --lens-distortion set, the editor path keeps batch output equal
-    # to `develop` with the same flags.
+    # The one-pass RAW kernel has no lens-distortion (geometry) stage and
+    # no profile-correction stage: with --lens-distortion or --lens-correct
+    # set, the editor path keeps batch output equal to `develop` with the
+    # same flags.
     if (all(is_raw_image(p) for p in paths) and not args.preset
             and not args.crop and not args.exact_path
-            and args.lens_distortion == 0):
+            and args.lens_distortion == 0 and not args.lens_correct):
         return _batch_raw_fast_path(paths, args)
 
     t0 = time.perf_counter()
@@ -340,13 +368,15 @@ def cmd_batch(args) -> int:
     taken: set = set()
     for p in paths:
         ed = PhotoEditor.open(p, use_kernel=not args.exact_path,
-                              device=args.device)
+                              lens_correct=args.lens_correct,
+                              lens_db_paths=args.lens_db, device=args.device)
         _apply_edit_flags(ed, args)
         out = _batch_out_name(p, args.output_dir, taken)
         ed.save(out, quality=args.quality)
         h, w = ed.shape
         total_pix += h * w
-        print(f"  {p} -> {out}")
+        note = f"  [lens: {_lens_note(ed)}]" if args.lens_correct else ""
+        print(f"  {p} -> {out}{note}")
     dt = time.perf_counter() - t0
     print(f"batch: {len(paths)} images, {total_pix / 1e6:.4g} MPix in "
           f"{dt:.1f} s ({total_pix / 1e6 / dt:.4g} MPix/s end-to-end)")

@@ -15,8 +15,10 @@ invert raw_photo_forge.py:2552):
   ``use_kernel=False`` or a raw-LUT curve, the exact-LUT anchor.
 
 Sessions live on ``device`` (the card unless the caller asks for the CPU).
-Similarity/smart/model masks, lens profiles, host instant previews, the
-sparse JPEG export and HDR DNG export are not ported yet (ROADMAP.md).
+``open(lens_correct=...)`` applies a lens profile resolved from EXIF
+(``io/lensdb`` -> ``ops/lenscorr``) to the original at load time.
+Similarity/smart/model masks, host instant previews, the sparse JPEG
+export and HDR DNG export are not ported yet (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -133,6 +135,11 @@ class PhotoEditor:
         self.exif = dict(exif or {})
         # The decode error when a RAW opened on its embedded preview.
         self.opened_from_preview = None
+        # Name of the auto-applied lens profile (open(lens_correct=True))
+        # and whether it came from an approximate-provenance database (the
+        # bundled starter set) rather than calibrated lensfun data.
+        self.applied_lens_profile = None
+        self.applied_lens_approximate = False
         # Raw EXIF blob for write-back into exports.
         self._exif_bytes = self.exif.pop("_exif_bytes", None)
         self._use_kernel = bool(use_kernel)
@@ -173,29 +180,45 @@ class PhotoEditor:
 
     # -- construction -------------------------------------------------------
     @classmethod
-    def open(cls, path: str, lens_correct=False, **kwargs) -> "PhotoEditor":
-        """Open an image file (display formats, 16-bit PPM, DNG and other
-        TIFF-structured RAWs)."""
-        from ..io.raw import check_ported_extension
-
-        if lens_correct:
-            raise NotPortedError("lens-profile correction",
-                              "ops/lenscorr and io/lensdb")
-        check_ported_extension(path)
+    def open(cls, path: str, lens_correct=False, lens_db_paths=None,
+             preview_fallback: bool = True, **kwargs) -> "PhotoEditor":
+        """Open an image file (display formats, 16-bit PPM, DNG and the
+        vendor RAW containers). With ``lens_correct`` truthy, resolve the
+        EXIF camera/lens against the lens database (the bundled profiles
+        plus any lensfun XML in ``lens_db_paths``) and apply the matched
+        profile: ``applied_lens_profile`` names it and
+        ``applied_lens_approximate`` gives its provenance;
+        ``lens_correct="calibrated-only"`` skips approximate profiles.
+        ``preview_fallback``: see ``from_bytes``."""
+        resolve_device(kwargs.get("device"))  # the no-card error comes first
         fmt = image_io.format_for_path(path)
         with open(path, "rb") as f:
             data = f.read()
-        return cls.from_bytes(data, fmt, **kwargs)
+        ed = cls.from_bytes(data, fmt, preview_fallback=preview_fallback,
+                            **kwargs)
+        if lens_correct:
+            from ..io.lensdb import LensDatabase
+
+            prof = LensDatabase.load(lens_db_paths).profile_from_exif(
+                ed.exif,
+                calibrated_only=(lens_correct == "calibrated-only"))
+            if prof is not None:
+                ed.apply_lens_profile(prof)
+                ed.applied_lens_profile = prof.name
+                ed.applied_lens_approximate = bool(prof.approximate)
+        return ed
 
     @classmethod
     def from_bytes(cls, data: bytes, fmt: str, device=None,
-                   **kwargs) -> "PhotoEditor":
+                   preview_fallback: bool = True, **kwargs) -> "PhotoEditor":
         """Decode container bytes on the host, upload bucket-padded planes
         to ``device`` and build the session (a RAW develops on the bucket
         grid where it can, ``io/raw.develop_raw_image_padded``). When RAW
-        sensor data cannot decode and the file carries a camera-rendered
-        JPEG preview, the session opens on the preview, with
-        ``opened_from_preview`` recording the decode error."""
+        sensor data cannot decode (a vendor entropy codec, or a decode the
+        embedded-preview gate refuses) and the file carries a
+        camera-rendered JPEG preview, the session opens on the preview,
+        with ``opened_from_preview`` recording the decode error, unless
+        ``preview_fallback`` is False."""
         dev_ = resolve_device(device)
         reason = None
         try:
@@ -203,7 +226,8 @@ class PhotoEditor:
         except PhotoEditorError as e:
             from ..io.raw import decode_embedded_preview_host
 
-            hd = decode_embedded_preview_host(data) if fmt == "DNG" else None
+            hd = (decode_embedded_preview_host(data)
+                  if preview_fallback and fmt == "DNG" else None)
             if hd is None:
                 raise
             reason = str(e)
@@ -291,6 +315,25 @@ class PhotoEditor:
 
     def mask_names(self) -> list[str]:
         return [m.name for m in self.masks]
+
+    # -- lens profile correction (load-time, python-legacy editor.py:425-711)
+    def apply_lens_profile(self, profile) -> None:
+        """Apply a LensProfile (devignette -> TCA -> distortion) to the
+        session's original at every pyramid level built so far: the
+        corrected image becomes the new original all edits derive from."""
+        from ..ops.lenscorr import apply_profile
+
+        # Small images alias MID/LOW to the FULL tensor: correct each
+        # unique buffer once and share the result across aliased levels.
+        done: dict[int, torch.Tensor] = {}
+        for level in list(self._originals):
+            src = self._originals[level]
+            key = id(src)
+            if key not in done:
+                done[key] = apply_profile(src, profile, self._extents[level])
+            self._originals[level] = done[key]
+        self._geo_cache.clear()
+        self._invalidate(masks_changed=False)
 
     # -- edits --------------------------------------------------------------
     def params(self, mask_name: Optional[str] = None) -> EditParameters:
@@ -559,10 +602,18 @@ class PhotoEditor:
 
     def export_exif_bytes(self):
         """The EXIF payload exports carry: the original blob, or one
-        synthesized from the parsed metadata (None when there is none)."""
+        synthesized from the parsed metadata (None when there is none).
+        When an approximate-provenance lens profile was applied, the
+        synthesized payload says so in its Software tag."""
         if self._exif_bytes is not None:
             return self._exif_bytes
-        return image_io.build_exif_bytes(self.exif)
+        exif = self.exif
+        if self.applied_lens_approximate and self.applied_lens_profile:
+            exif = dict(exif)
+            exif["Software"] = (
+                "rawphotoforge-tpu (lens correction: APPROXIMATE bundled "
+                f"profile '{self.applied_lens_profile}')")
+        return image_io.build_exif_bytes(exif)
 
     def save_bytes(self, fmt: str, quality: int = 95) -> bytes:
         """Encode the FULL render (dense path: full-frame render, crop

@@ -1,9 +1,7 @@
 """Minimal DNG (TIFF-EP) RAW container: reader + writer — the JAX
-package's ``io/dng.py`` on the host, as the port's own copy. Two parts of
-it are not ported yet and raise ``NotPortedError``: Sony ARW2 sensor data
-(io/vendor_packed) and the preview candidates of non-TIFF containers
-(io/vendor_preview); Pentax/Olympus MakerNote black/WB levels are copied
-here (``_parse_makernote_wb``) since the DNG walker reads them.
+package's ``io/dng.py`` on the host, as the port's own copy (Sony ARW2
+data decodes through io/vendor_packed, the previews of non-TIFF
+containers come from io/vendor_preview).
 
 Replaces the reference's rawler/rawpy dependency for the RAW ingestion layer
 (rust-godot-legacy/photo-editor/src/image.rs:509-557 decodes 29 formats via
@@ -114,7 +112,7 @@ _TYPE_SIZES = {1: 1, 2: 1, 3: 2, 4: 4, 5: 8, 6: 1, 7: 1, 8: 2, 9: 4, 10: 8,
 _TYPE_FMT = {1: "B", 3: "H", 4: "I", 6: "b", 8: "h", 9: "i", 11: "f", 12: "d"}
 
 
-from .._errbase import NotPortedError, PhotoEditorError
+from .._errbase import PhotoEditorError
 
 
 class DngError(PhotoEditorError, ValueError):
@@ -163,6 +161,13 @@ class RawImage:
     # path then estimates gray-world gains instead of rendering the raw
     # sensor response (develop_raw_image).
     wb_known: bool = True
+    # True when the sensor data came through a memory-derived bitstream
+    # codec (io/vendor_packed: Sony ARW2, Panasonic RAW4): parse_raw then
+    # auto-correlates a host superpixel develop against the file's own
+    # embedded camera preview and REFUSES the decode (typed DngError ->
+    # preview fallback) below the 0.9 gate, so a misremembered packing
+    # rule can never pass silently.
+    needs_verification: bool = False
 
     @property
     def shape(self):
@@ -1038,103 +1043,6 @@ def _best_jpeg(cands) -> Optional[bytes]:
     return None
 
 
-def _parse_makernote_wb(make: str, data: bytes, entry, bo: str) -> dict:
-    """Extract documented black/WB fields from a vendor MakerNote (a copy
-    of the JAX package's io/vendor_raw.parse_makernote_wb).
-
-    Only formats whose layout is publicly documented (exiftool/dcraw are
-    the sources) are parsed; anything else returns {} and the caller
-    falls back to gray-world gains with ``wb_known=False``. Every real
-    vendor file's decode remains gated by ``preview_correlation``
-    (``info --verify-decode``) — a wrong parse here cannot pass silently.
-
-    * Pentax PEF (dcraw parse_makernote, exiftool Pentax.pm): MakerNote
-      is ``AOC\\x00`` + byte-order mark + a plain TIFF IFD whose value
-      offsets are FILE-ABSOLUTE in PEF. Tag 0x0200 BlackPoint (4 shorts,
-      CFA-site order -> mean), 0x0201 WhitePoint = the as-shot WB levels
-      (4 shorts, R G G B order: gains r=v0/v1, b=v3/v1).
-    * Olympus ORF (dcraw parse_makernote 0x2040/0x0100, exiftool
-      Olympus.pm): ``OLYMPUS\\x00`` + self-relative TIFF structure; the
-      ImageProcessing sub-IFD (tag 0x2040) carries 0x0100 WB_RBLevels
-      (R and B levels x256, green = 256) and 0x0600 BlackLevel2
-      (4 shorts -> mean). Legacy ``OLYMP\\x00`` notes carry a plain IFD
-      with file-absolute offsets (no sub-IFD parsing attempted).
-
-    Returns a dict with optional keys ``wb`` ((r, 1, b) gains) and
-    ``black`` (float)."""
-    typ, n, off = entry
-    if typ not in (1, 7) or n < 8 or off + n > len(data):
-        return {}
-    blob = data[off : off + n]
-    try:
-        if blob[:4] == b"AOC\x00" or blob[:8] == b"PENTAX \x00":
-            # Pentax: optional II/MM right after the signature overrides
-            # the container byte order (exiftool: PEF notes usually match
-            # the file's).
-            base = 4 if blob[:4] == b"AOC\x00" else 8
-            mbo = bo
-            if blob[base:base + 2] in (b"II", b"MM"):
-                mbo = "<" if blob[base:base + 2] == b"II" else ">"
-                base += 2
-            entries, _ = _read_ifd(data, off + base, mbo)
-            out = {}
-            bp = entries.get(0x0200)
-            if bp is not None:
-                v = _value(data, bp, mbo)
-                if isinstance(v, list) and len(v) >= 4:
-                    out["black"] = float(np.mean(v[:4]))
-            wp = entries.get(0x0201)
-            if wp is not None:
-                v = _value(data, wp, mbo)
-                if isinstance(v, list) and len(v) >= 4 \
-                        and all(x > 0 for x in v[:4]):
-                    r, g1, _g2, b = (float(x) for x in v[:4])
-                    out["wb"] = (r / g1, 1.0, b / g1)
-            return out
-        if blob[:8] == b"OLYMPUS\x00":
-            # New-style Olympus: offsets relative to the MakerNote start.
-            mbo = "<" if blob[8:10] == b"II" else ">"
-            # IFD begins right after the 12-byte header; entry value
-            # offsets are relative to ``off`` (the note's file offset).
-            entries, _ = _read_ifd(blob, 12, mbo)
-            ip = entries.get(0x2040)
-            if ip is None:
-                return {}
-            if ip[0] in (4, 13):
-                # LONG/IFD pointer: the value is a note-relative offset.
-                # Type 13 (IFD) is absent from the shared _TYPE_SIZES
-                # table, so read the u32 directly at the entry's value
-                # slot instead of going through _value.
-                (ip_off,) = struct.unpack_from(mbo + "I", blob, ip[2])
-            else:
-                # UNDEFINED: the sub-IFD is stored inline as the tag's
-                # payload; _read_ifd already resolved its start.
-                ip_off = ip[2]
-            if isinstance(ip_off, int) and 0 < ip_off < n:
-                sub, _ = _read_ifd(blob, ip_off, mbo)
-                out = {}
-                wbl = sub.get(0x0100)
-                if wbl is not None:
-                    v = _value(blob, wbl, mbo)
-                    v = v if isinstance(v, list) else [v]
-                    if len(v) >= 2 and all(x > 0 for x in v[:2]):
-                        out["wb"] = (float(v[0]) / 256.0, 1.0,
-                                     float(v[1]) / 256.0)
-                bl2 = sub.get(0x0600)
-                if bl2 is not None:
-                    v = _value(blob, bl2, mbo)
-                    if isinstance(v, list) and len(v) >= 4:
-                        out["black"] = float(np.mean(v[:4]))
-                return out
-            return {}
-    except (struct.error, ValueError, IndexError, KeyError, TypeError,
-            ZeroDivisionError):
-        return {}
-    return {}
-
-
-
-
 def extract_preview(data: bytes) -> Optional[bytes]:
     """Return the largest embedded JPEG preview/thumbnail, or None.
 
@@ -1143,7 +1051,7 @@ def extract_preview(data: bytes) -> Optional[bytes]:
     full-size preview with Compression=6; EXIF IFD1 thumbnails via
     JPEGInterchangeFormat) — the instant-display images the reference
     gets from rawler/exiftool. Non-TIFF vendor containers (Fujifilm RAF,
-    Canon CR3 BMFF) are not ported (io/vendor_preview): None. Candidates are
+    Canon CR3 BMFF) route through io/vendor_preview. Candidates are
     validated with Pillow (so an SOF3/corrupt strip can't masquerade as
     a decodable preview); malformed containers return None rather than
     raising."""
@@ -1153,7 +1061,9 @@ def extract_preview(data: bytes) -> Optional[bytes]:
         elif data[:2] == b"MM":
             bo = ">"
         else:
-            return None  # non-TIFF containers: io/vendor_preview, not ported
+            from .vendor_preview import vendor_preview_candidates
+
+            return _best_jpeg(vendor_preview_candidates(data))
         cands = []
         for e in _walk_all_ifds(data, bo):
             def val(t, default=None):
@@ -1337,6 +1247,7 @@ def _read_dng(data: bytes, apply_opcodes: bool = True) -> RawImage:
     counts = counts if isinstance(counts, list) else [counts]
 
     pattern = None
+    arw2_white_default = None
     if photometric == PHOTOMETRIC_LINEAR_RAW:
         spp = tag(cfa_ifd, T_SAMPLES_PER_PIXEL, 1)
         if spp != 3:
@@ -1443,8 +1354,24 @@ def _read_dng(data: bytes, apply_opcodes: bool = True) -> RawImage:
                 tiled=tiled,
             )
     elif compression == COMPRESSION_SONY_ARW2:
-        raise NotPortedError("Sony ARW2 sensor data",
-                             "io/vendor_packed (vendor containers)")
+        # Sony ARW2 (cRAW): 8-bit/pixel packed 16-pixel blocks, decoded
+        # through the tag-0x7010 companding curve (io/vendor_packed —
+        # memory-derived codec, auto-gated by parse_raw's
+        # preview-correlation check via needs_verification below).
+        from .vendor_packed import decode_arw2, sony_arw2_curve
+
+        if tiled:
+            raise DngError("tiled ARW2 is not supported")
+        if sample_format != 1:
+            raise DngError("ARW2 with non-integer SampleFormat")
+        knots = tag(cfa_ifd, T_SONY_CURVE)
+        arw2_curve = sony_arw2_curve(knots)
+        strip_data = b"".join(data[o : o + c] for o, c in zip(offsets, counts))
+        mosaic = decode_arw2(strip_data, width, height, arw2_curve)
+        # The curve maps 11-bit codes into the same domain as the Sony
+        # black/white tags; when the white tag is absent the curve's own
+        # maximum output is the exact representable ceiling.
+        arw2_white_default = float(arw2_curve[4094])
     else:
         if compression != 1:
             raise DngError(
@@ -1587,12 +1514,14 @@ def _read_dng(data: bytes, apply_opcodes: bool = True) -> RawImage:
 
     # Vendor MakerNote (PEF 'AOC', ORF 'OLYMPUS'): documented black/WB
     # fields, used only when the standard DNG + Sony tags are absent
-    # (_parse_makernote_wb — formulas from dcraw/exiftool,
+    # (vendor_raw.parse_makernote_wb — formulas from dcraw/exiftool,
     # real files gated by preview_correlation).
     mn_info: dict = {}
     for e in ifds:
         if 0x927C in e:
-            mn_info = _parse_makernote_wb(
+            from .vendor_raw import parse_makernote_wb
+
+            mn_info = parse_makernote_wb(
                 str(any_ifd(T_MAKE) or ""), data, e[0x927C], bo)
             break
 
@@ -1610,6 +1539,10 @@ def _read_dng(data: bytes, apply_opcodes: bool = True) -> RawImage:
     white = any_ifd(T_WHITE_LEVEL)
     if white is None:
         white = any_ifd(T_SONY_WHITE_LEVEL)  # exiftool Sony WhiteLevel
+    if white is None and arw2_white_default is not None:
+        # ARW2 stores 8 bits/pixel; (1 << bits) - 1 would be nonsense —
+        # the decoded domain's ceiling is the companding curve's maximum.
+        white = arw2_white_default
     if white is None:
         white = 1.0 if sample_format == 3 else (1 << bits) - 1
     if isinstance(white, list):
@@ -1759,6 +1692,7 @@ def _read_dng(data: bytes, apply_opcodes: bool = True) -> RawImage:
         vignette_first=vignette_first,
         opcode_lists=opcode_lists,
         wb_known=wb_known,
+        needs_verification=(compression == COMPRESSION_SONY_ARW2),
     )
 
 

@@ -10,9 +10,8 @@ contract (rust/photo-editor/src/image.rs):
   (web-ts/core/image.ts:146-195).
 
 Pillow is imported lazily, inside the PIL-format paths: PPM16 in and
-PPM16/PNG16 out need only numpy and zlib. RAW containers decode through
-``io/raw`` (DNG and TIFF-structured RAWs; vendor containers raise a typed
-not-ported error).
+PPM16/PNG16 out need only numpy and zlib. RAW containers (DNG, the
+TIFF-structured RAWs and the vendor containers) decode through ``io/raw``.
 """
 
 from __future__ import annotations

@@ -1,36 +1,29 @@
-"""RAW ingestion glue: DNG bytes -> linear sRGB planes on the device.
+"""RAW ingestion glue: RAW bytes -> linear sRGB planes on the device.
 
-The JAX package's ``io/raw.py``: container parse on the host
-(``io/dng``), then normalize -> WB -> demosaic -> camera matrix on the
-device (``ops/demosaic``), DefaultCrop and EXIF orientation. DNG and
-TIFF-structured RAWs decode; the vendor containers the JAX package parses
-with its own readers (Canon CR2, Panasonic RW2, Fujifilm RAF) are sniffed
-and refused with ``NotPortedError``, as are DNG OpcodeList3 warps and
-radial vignetting (``ops/lenscorr``) and the host instant preview.
+The JAX package's ``io/raw.py``: container parse on the host (``io/dng``
+for DNG and TIFF-structured RAWs, Sony ARW2 included; ``io/cr2``;
+``io/vendor_raw`` for Panasonic RW2 and Fujifilm RAF), the decode gate of
+the memory-derived codecs (ARW2, RAW4) against the file's embedded camera
+preview, then normalize -> WB -> demosaic -> camera matrix on the device
+(``ops/demosaic``), the DNG OpcodeList3 warps and radial vignette
+(``ops/lenscorr``), DefaultCrop and EXIF orientation.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import os
-import struct
 import warnings
 
 import numpy as np
 import torch
 
 from .._device import resolve_device
-from .._errbase import NotPortedError
 from ..ops import demosaic as dm
 from ..ops.develop import replicate_true_edges
 from ..ops.geometry import orient_exif
 from .dng import RawImage, read_dng
 from .image_io import RAW_EXTENSIONS
-
-# Containers the JAX package reads with vendor parsers the port lacks
-# (refused by extension before the file is read, and by content below).
-VENDOR_EXTENSIONS = {".cr2", ".cr3", ".crw", ".rw2", ".rwl", ".raf", ".x3f"}
-_VENDOR_ITEM = "vendor containers (io/cr2, io/vendor_raw, io/vendor_packed)"
 
 
 def is_raw_image(path: str) -> bool:
@@ -38,36 +31,81 @@ def is_raw_image(path: str) -> bool:
     return os.path.splitext(path)[1].lower() in RAW_EXTENSIONS
 
 
-def check_ported_extension(path: str) -> None:
-    """Refuse a vendor container by its extension (typed, names ROADMAP)."""
-    ext = os.path.splitext(path)[1].lower()
-    if ext in VENDOR_EXTENSIONS:
-        raise NotPortedError(f"RAW input from a {ext} container", _VENDOR_ITEM)
-
-
 def parse_raw(data: bytes, apply_opcodes: bool = True) -> RawImage:
-    """Sniff the container type and parse RAW bytes into a RawImage: DNG
-    and other TIFF-structured RAWs through the DNG walker; Canon CR2
-    (``CR\\x02`` at byte 8), Panasonic RW2 (TIFF magic 0x0055) and
-    Fujifilm RAF (``FUJIFILMCCD-RAW``) raise ``NotPortedError``."""
-    cr2 = (len(data) > 12 and data[:4] == b"II\x2a\x00"
-           and data[8:10] == b"CR" and data[10] == 2)
-    rw2 = (len(data) >= 8 and data[:2] == b"II"
-           and struct.unpack_from("<H", data, 2)[0] == 0x0055)
-    raf = data[:15] == b"FUJIFILMCCD-RAW"
-    if cr2 or rw2 or raf:
-        kind = "Canon CR2" if cr2 else ("Panasonic RW2" if rw2 else
-                                        "Fujifilm RAF")
-        raise NotPortedError(f"RAW input from a {kind} container",
-                             _VENDOR_ITEM)
-    return read_dng(data, apply_opcodes=apply_opcodes)
+    """Sniff the container type and parse RAW bytes into a RawImage.
+
+    Canon CR2 carries a CR\\x02 marker at byte 8; Panasonic RW2 stamps
+    TIFF magic 0x0055; Fujifilm RAF has its fixed ``FUJIFILMCCD-RAW``
+    header; everything else TIFF-structured (DNG, uncompressed
+    NEF/ARW/other TIFF-EP RAWs, Sony ARW2) goes through the DNG walker.
+    A decode through a memory-derived codec (``needs_verification``) must
+    pass the embedded-preview gate. ``apply_opcodes=False`` is the
+    lossless-transcode mode (see read_dng)."""
+    from .cr2 import is_cr2, read_cr2
+    from .vendor_raw import is_raf, is_rw2, read_raf, read_rw2
+
+    if is_cr2(data):
+        raw = read_cr2(data)
+    elif is_rw2(data):
+        raw = read_rw2(data)
+    elif is_raf(data):
+        raw = read_raf(data)
+    else:
+        raw = read_dng(data, apply_opcodes=apply_opcodes)
+    if raw.needs_verification:
+        verify_memory_derived_decode(data, raw)
+    return raw
 
 
-def _check_opcodes(raw: RawImage) -> None:
-    if (raw.warp_rectilinear is not None or raw.warp_fisheye is not None
-            or raw.vignette_radial is not None):
-        raise NotPortedError("DNG OpcodeList3 (warp, radial vignette)",
-                             "ops/lenscorr")
+def gate_correlation(data: bytes, raw: RawImage):
+    """The decode gate's correlation: a host superpixel develop of the
+    decoded mosaic (``engine/instant``) against the file's embedded camera
+    preview (JPEG draft decode at >= 256 px), max Pearson over the 8
+    dihedral placements. None when there is no usable preview."""
+    import io as _io
+
+    from PIL import Image as PILImage
+
+    from ..engine import instant
+    from .dng import extract_preview
+    from .vendor_raw import dihedral_luma_correlation
+
+    jpeg = extract_preview(data)
+    if jpeg is None:
+        return None
+    try:
+        img = PILImage.open(_io.BytesIO(jpeg))
+        # JPEG draft mode: decode at the nearest 1/2^k scale >= 256 px —
+        # the correlation pools to a 64-grid anyway.
+        img.draft("RGB", (256, 256))
+        pv_u8 = np.asarray(img.convert("RGB"))
+    except Exception:  # noqa: BLE001 — a corrupt preview can't verify
+        return None
+    if pv_u8.ndim != 3 or min(pv_u8.shape[:2]) < 8:
+        return None
+    pv_lin = instant.linear_from_srgb_u8(np.ascontiguousarray(pv_u8))
+    dev = instant.quick_linear_from_raw(raw, 128)
+    if dev is None:
+        return None
+    return dihedral_luma_correlation(dev, pv_lin)
+
+
+def verify_memory_derived_decode(data: bytes, raw: RawImage) -> None:
+    """The silent-wrong gate of the memory-derived bitstream codecs
+    (io/vendor_packed: Sony ARW2, Panasonic RAW4): below the 0.9 gate the
+    decode is REFUSED with a typed DngError, and callers' preview fallback
+    then opens the file loudly (``opened_from_preview`` carries this
+    message). Files without a decodable embedded preview pass unverified
+    (fixtures; every real camera writes one)."""
+    from .dng import DngError
+    from .vendor_raw import CORRELATION_GATE
+
+    corr = gate_correlation(data, raw)
+    if corr is not None and corr < CORRELATION_GATE:
+        raise DngError(
+            f"memory-derived packed decode failed the embedded-preview "
+            f"correlation gate ({corr:.3f} < {CORRELATION_GATE}); "
+            f"refusing possibly-wrong sensor data")
 
 
 def decode_embedded_preview(data: bytes, device=None):
@@ -84,7 +122,7 @@ def decode_embedded_preview_host(data: bytes):
     """Host phase of decode_embedded_preview: preview extraction, the
     Pillow decode and the container-EXIF merge (image_io.HostDecoded)."""
     from .._errbase import PhotoEditorError
-    from .dng import extract_container_exif, extract_preview
+    from .dng import extract_preview
     from .image_io import ImageIOError, decode_image_host
 
     jpeg = extract_preview(data)
@@ -100,13 +138,37 @@ def decode_embedded_preview_host(data: bytes):
     # The container's tags are the capture record; the preview's parsed
     # tags fill per field, and its raw blob is dropped when the container
     # knows fields the blob lacks (write-back prefers the blob verbatim).
-    merged = dict(extract_container_exif(data))
+    merged = container_exif(data)
     pv_fields = {k for k in exif if k != "_exif_bytes"}
     if merged and any(k not in pv_fields for k in merged):
         exif.pop("_exif_bytes", None)
     merged.update(exif)
     hd.exif = merged
     return hd
+
+
+def container_exif(data: bytes) -> dict:
+    """Best-effort capture metadata from any RAW container, without
+    decoding sensor data: the TIFF IFD forest for TIFF-structured files,
+    or the CMT metadata boxes of a BMFF container (Canon CR3)."""
+    from .dng import _EXIF_TAGS, _format_exif, extract_container_exif
+    from .vendor_preview import bmff_exif_tiff_blocks, is_bmff
+
+    exif = dict(extract_container_exif(data))
+    if not exif and is_bmff(data):
+        # Merge the CMT streams at the raw-TAG level, then format once:
+        # CMT1 (IFD0 stream) holds DateTime(306), CMT2 (EXIF stream)
+        # DateTimeOriginal(36867) — a per-block format + dict merge would
+        # let CMT1's modification time shadow the capture time.
+        from .dng import extract_container_tags
+
+        tags: dict = {}
+        for blk in bmff_exif_tiff_blocks(data):
+            for t, v in extract_container_tags(bytes(blk), _EXIF_TAGS).items():
+                tags.setdefault(t, v)
+        if tags:
+            exif = _format_exif(tags.get)
+    return exif
 
 
 def estimate_gray_world_gains(mosaic: np.ndarray, pattern: str,
@@ -228,11 +290,59 @@ def bucket_stable_eligible(raw: RawImage) -> bool:
     ``bucket_pads`` accepts. Its true region equals develop_raw_image's
     output bit for bit (Bayer: the reflect pad reproduces Malvar's own
     edge reflection and keeps the phase; X-Trans: pad sites count as
-    absent samples of the masked normalized convolution)."""
+    absent samples of the masked normalized convolution). A file with
+    OpcodeList3 warps or a radial vignette develops on the bucket grid
+    with coordinates normalized by the true extent, so only orientations
+    whose pad lands bottom/right before orientation qualify."""
     if raw.pattern not in dm.BAYER_PATTERNS and raw.pattern not in (
             "RGB", "XTRANS"):
         return False
+    if has_opcode_list3(raw) and _PAD_SIDES.get(raw.orientation) != (
+            False, False):
+        return False
     return bucket_pads(raw) is not None
+
+
+def has_opcode_list3(raw: RawImage) -> bool:
+    """Whether the file carries post-demosaic OpcodeList3 stages."""
+    return (raw.warp_rectilinear is not None or raw.warp_fisheye is not None
+            or raw.vignette_radial is not None)
+
+
+def apply_opcode_list3(planes: torch.Tensor, raw: RawImage,
+                       extent=None) -> torch.Tensor:
+    """DNG OpcodeList3 WarpRectilinear / WarpFisheye (the geometric
+    correction phone DNGs rely on) and FixVignetteRadial, post-demosaic
+    and before DefaultCrop, in the file's listed order (``vignette_first``:
+    the gain is evaluated on pre-warp coordinates). ``extent``: the true
+    (h, w) of bucket-padded planes."""
+    from ..ops.lenscorr import (vignette_radial_gain, warp_fisheye,
+                                warp_rectilinear)
+
+    def warp(p):
+        if raw.warp_rectilinear is not None:
+            coefs, center = raw.warp_rectilinear
+            p = warp_rectilinear(p, coefs, center, extent=extent)
+        if raw.warp_fisheye is not None:
+            coefs, center = raw.warp_fisheye
+            p = warp_fisheye(p, coefs, center, extent=extent)
+        return p
+
+    def vignette(p):
+        k, center = raw.vignette_radial
+        g = vignette_radial_gain(p.shape[1], p.shape[2], k, center,
+                                 extent=extent, device=p.device)
+        return p * g[None, :, :]
+
+    steps = [(warp, raw.warp_rectilinear is not None
+              or raw.warp_fisheye is not None),
+             (vignette, raw.vignette_radial is not None)]
+    if raw.vignette_first:
+        steps.reverse()
+    for fn, present in steps:
+        if present:
+            planes = fn(planes)
+    return planes
 
 
 def develop_raw_image_padded(raw: RawImage, method: str = "malvar",
@@ -245,7 +355,6 @@ def develop_raw_image_padded(raw: RawImage, method: str = "malvar",
     from ..engine.editor import bucket_shape
 
     dev = resolve_device(device)
-    _check_opcodes(raw)
     pads = bucket_pads(raw)
     if pads is None or not bucket_stable_eligible(raw):
         raise ValueError("this RAW is not bucket-stable eligible")
@@ -270,6 +379,10 @@ def develop_raw_image_padded(raw: RawImage, method: str = "malvar",
     else:
         planes = dm.develop_raw(mosaic01, raw.wb_gains, cam,
                                 pattern=raw.pattern, method=method)
+    if has_opcode_list3(raw):
+        # bucket_stable_eligible put the pad bottom/right, so the true
+        # region sits at the origin when coordinates normalize by it.
+        planes = apply_opcode_list3(planes, raw, extent=raw.mosaic.shape[:2])
     if raw.default_crop is not None:
         cx, cy, cw, ch = raw.default_crop
         bh, bw = bucket_shape(ch, cw)
@@ -286,7 +399,6 @@ def develop_raw_image_padded(raw: RawImage, method: str = "malvar",
 def develop_raw_image(raw: RawImage, method: str = "malvar", device=None):
     """RawImage -> (linear sRGB planes f32 [3, H, W] on ``device``, exif)."""
     dev = resolve_device(device)
-    _check_opcodes(raw)
     raw = with_effective_wb(raw)
     mosaic01 = normalized_mosaic(raw, raw.mosaic, dev)
     cam = cam2srgb_for(raw)
@@ -295,6 +407,7 @@ def develop_raw_image(raw: RawImage, method: str = "malvar", device=None):
     else:
         planes = dm.develop_raw(mosaic01, raw.wb_gains, cam,
                                 pattern=raw.pattern, method=method)
+    planes = apply_opcode_list3(planes, raw)
     if raw.default_crop is not None:
         cx, cy, cw, ch = raw.default_crop
         planes = planes[:, cy : cy + ch, cx : cx + cw]

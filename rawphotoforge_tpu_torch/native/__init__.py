@@ -2,15 +2,18 @@
 
 The source is the port's own copy of the parts of the JAX package's
 native runtime the RAW batch path calls: the lossless-JPEG scan decoder
-and bit packer (``io/ljpeg``) and the baseline JPEG 4:2:0 encoder
-(``io/jpegenc``). The library is built at first use (never at import) with
+and bit packer (``io/ljpeg``), the baseline JPEG 4:2:0 encoder
+(``io/jpegenc``), the Sony ARW2 and Panasonic RAW4 decoders
+(``io/vendor_packed``) and the per-CFA-tile block means of the decode gate
+(``engine/instant``). The library is built at first use (never at import) with
 ``g++`` and the JAX package's Makefile flags (less ``-fopenmp``) into
 ``<package>/build/``
 (listed in .gitignore), keyed by a hash of the source, the flags and the
 host CPU (``-march=native``); an existing library of the same key is
 reused. A failed build raises with the compiler's log: there is no
-pure-Python fallback, since a 24 MP lossless-JPEG decode in Python would
-take minutes.
+pure-Python fallback, since a 24 MP lossless-JPEG, ARW2 or RAW4 decode in
+Python would take minutes (``io/vendor_packed``'s Python decoders are kept
+as test oracles only).
 """
 
 from __future__ import annotations
@@ -110,6 +113,16 @@ def _bind(lib) -> None:
         u8p, u8p, u8p, c, c, c, u8p, c64, ctypes.POINTER(ctypes.c_int64),
     ]
     lib.rpf_jpeg_encode_ycc420.restype = c
+    lib.rpf_arw2_decode.argtypes = [ctypes.c_char_p, c64, c, c, u16p, u16p]
+    lib.rpf_arw2_decode.restype = c
+    lib.rpf_pana_decode_raw4.argtypes = [ctypes.c_char_p, c64, c, c, u16p]
+    lib.rpf_pana_decode_raw4.restype = c
+    i32p = np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS")
+    f32p = np.ctypeslib.ndpointer(np.float32, flags="C_CONTIGUOUS")
+    lib.rpf_cfa_block_means.argtypes = [
+        u16p, c, c, c, c, i32p, ctypes.c_float, ctypes.c_float, f32p,
+    ]
+    lib.rpf_cfa_block_means.restype = c
 
 
 def ljpeg_decode_scan(seg: bytes, out, frame, mcu_start: int, mcu_count: int,
@@ -172,3 +185,57 @@ def jpeg_encode_ycc420(y, cb, cr, quality: int = 92) -> bytes:
     if rc != 0:
         raise ValueError(f"rpf_jpeg_encode_ycc420 failed (rc={rc})")
     return out[: out_len.value].tobytes()
+
+
+def arw2_decode(payload: bytes, width: int, height: int, curve):
+    """Sony ARW2 block decode -> u16 [height, width] (curve-mapped); the
+    scalar ``io/vendor_packed.decode_arw2_py`` is its test oracle."""
+    lib = library()
+    c = np.ascontiguousarray(curve, dtype=np.uint16)
+    if c.shape != (4096,):
+        raise ValueError(f"curve must be u16[4096], got {c.shape}")
+    out = np.empty((height, width), dtype=np.uint16)
+    rc = lib.rpf_arw2_decode(bytes(payload), len(payload),
+                             int(width), int(height), c, out)
+    if rc != 0:
+        raise ValueError(f"rpf_arw2_decode failed: {rc}")
+    return out
+
+
+def pana_decode_raw4(payload: bytes, width: int, height: int):
+    """Panasonic RAW4 bitstream decode -> u16 [height, width]; the Python
+    ``io/vendor_packed.decode_pana_raw4_py`` is its test oracle. A
+    truncated stream raises the container readers' typed DngError."""
+    lib = library()
+    out = np.empty((height, width), dtype=np.uint16)
+    rc = lib.rpf_pana_decode_raw4(bytes(payload), len(payload),
+                                  int(width), int(height), out)
+    if rc == 4:
+        from ..io.dng import DngError
+
+        raise DngError("RAW4 bitstream truncated")
+    if rc != 0:
+        raise ValueError(f"rpf_pana_decode_raw4 failed: {rc}")
+    return out
+
+
+def cfa_block_means(t_u16, ph: int, pw: int, tile_flat, black: float,
+                    span: float):
+    """Per-CFA-tile channel means of a u16 block -> f32 [3, eh, ew] in
+    [0, 1] (the decode gate's superpixel develop, engine/instant)."""
+    lib = library()
+    t = np.ascontiguousarray(t_u16, dtype=np.uint16)
+    h, w = t.shape
+    if ph <= 0 or pw <= 0 or h % ph or w % pw:
+        raise ValueError(f"block {t.shape} not a multiple of tile "
+                         f"({ph}, {pw})")
+    eh, ew = h // ph, w // pw
+    tile = np.ascontiguousarray(tile_flat, dtype=np.int32).reshape(-1)
+    if tile.size != ph * pw:
+        raise ValueError("tile size mismatch")
+    out = np.empty((3, eh, ew), dtype=np.float32)
+    rc = lib.rpf_cfa_block_means(t, eh, ew, ph, pw, tile,
+                                 float(black), float(span), out)
+    if rc != 0:
+        raise ValueError(f"rpf_cfa_block_means failed (rc={rc})")
+    return out

@@ -1,8 +1,10 @@
 // rpf_native: the port's native host codecs, copied from the JAX
 // package's native/rpf_native.cpp (the same source for these functions, so
 // they give the same bytes): the lossless-JPEG scan decoder and bit packer
-// behind io/ljpeg.py, and the baseline JPEG 4:2:0 encoder behind
-// io/jpegenc.py's dense wire. rawphotoforge_tpu_torch/native/__init__.py
+// behind io/ljpeg.py, the baseline JPEG 4:2:0 encoder behind
+// io/jpegenc.py's dense wire, the Sony ARW2 and Panasonic RAW4 decoders
+// behind io/vendor_packed.py, and the per-CFA-tile block means of
+// engine/instant.py. rawphotoforge_tpu_torch/native/__init__.py
 // builds this file with g++ at first use and binds it with ctypes.
 //
 // ABI: plain C, ctypes-friendly. All functions return 0 on success.
@@ -564,6 +566,191 @@ int rpf_jpeg_encode_ycc420(const uint8_t* y, const uint8_t* cb,
   if (bw.overflow) return 3;
   *out_len = bw.pos;
   return RPF_OK;
+}
+
+
+// ---------------------------------------------------------------------------
+// Sony ARW2 block decode — the hot loop of io/vendor_packed.decode_arw2
+// (the vectorized numpy decoder is the tested oracle; this mirrors it
+// bit-for-bit at C speed; single-threaded in the port's build).
+//   payload: >= width*height bytes (width % 32 == 0)
+//   curve:   u16[4096] companding curve (sony_arw2_curve)
+//   out:     u16 [height, width]
+// ---------------------------------------------------------------------------
+
+int rpf_arw2_decode(const uint8_t* payload, int64_t nbytes, int width,
+                    int height, const uint16_t* curve, uint16_t* out) {
+  if (!payload || !curve || !out || width <= 0 || height <= 0 ||
+      width % 32 != 0 || nbytes < static_cast<int64_t>(width) * height)
+    return RPF_ERR_ARGS;
+  for (int row = 0; row < height; ++row) {
+    // Row copy with 2 zero slack bytes: delta slot 14 (the degenerate
+    // imax == imin case) reads past the last block; the oracle pads
+    // each ROW with zeros, so the mirror must too (not read the next
+    // row's bytes).
+    std::vector<uint8_t> rb(static_cast<size_t>(width) + 2, 0);
+    const uint8_t* src = payload + static_cast<int64_t>(row) * width;
+    std::copy(src, src + width, rb.begin());
+    uint16_t* orow = out + static_cast<int64_t>(row) * width;
+    int col = 0;
+    int dp = 0;
+    while (col < width - 30) {
+      uint32_t word = static_cast<uint32_t>(rb[dp]) |
+                      (static_cast<uint32_t>(rb[dp + 1]) << 8) |
+                      (static_cast<uint32_t>(rb[dp + 2]) << 16) |
+                      (static_cast<uint32_t>(rb[dp + 3]) << 24);
+      int vmax = word & 0x7ff;
+      int vmin = (word >> 11) & 0x7ff;
+      int imax = (word >> 22) & 0xf;
+      int imin = (word >> 26) & 0xf;
+      int sh = 0;
+      while (sh < 4 && (0x80 << sh) <= vmax - vmin) ++sh;
+      int bit = 30;
+      for (int i = 0; i < 16; ++i, col += 2) {
+        int pix;
+        if (i == imax) {
+          pix = vmax;
+        } else if (i == imin) {
+          pix = vmin;
+        } else {
+          int byte = dp + (bit >> 3);
+          int w16 = rb[byte] | (rb[byte + 1] << 8);
+          pix = (((w16 >> (bit & 7)) & 0x7f) << sh) + vmin;
+          if (pix > 0x7ff) pix = 0x7ff;
+          bit += 7;
+        }
+        orow[col] = curve[pix << 1];
+      }
+      col -= (col & 1) ? 1 : 31;
+      dp += 16;
+    }
+  }
+  return RPF_OK;
+}
+
+// ---------------------------------------------------------------------------
+// Panasonic RAW4 bitstream decode — the sequential hot loop of
+// io/vendor_packed.decode_pana_raw4 (dcraw pana_bits semantics; the
+// Python decode_pana_raw4_py is the tested oracle, this is its
+// bit-for-bit mirror at C speed for full-sensor files).
+//   data: the raw payload (0x4000-byte blocks, rotated by 0x2008)
+//   out:  u16 [height, width]
+// Returns RPF_ERR_TRUNCATED when the stream ends before the last pixel.
+// ---------------------------------------------------------------------------
+
+int rpf_pana_decode_raw4(const uint8_t* data, int64_t nbytes, int width,
+                         int height, uint16_t* out) {
+  if (!data || !out || width <= 0 || height <= 0 || nbytes < 0)
+    return RPF_ERR_ARGS;
+  uint8_t buf[0x4001];
+  std::memset(buf, 0, sizeof buf);
+  int64_t pos = 0;
+  int vbits = 0;
+  bool truncated = false;
+  auto get = [&](int nbits) -> int {
+    if (vbits == 0) {
+      if (pos >= nbytes) {
+        truncated = true;
+        return 0;
+      }
+      int64_t n = nbytes - pos;
+      if (n > 0x4000) n = 0x4000;
+      const int lf = 0x2008;  // PANA_LOAD_FLAGS block rotation
+      std::memset(buf, 0, 0x4000);
+      for (int64_t k = 0; k < n; ++k) {
+        int64_t at = (k < 0x4000 - lf) ? lf + k : k - (0x4000 - lf);
+        buf[at] = data[pos + k];
+      }
+      pos += 0x4000;
+    }
+    vbits = (vbits - nbits) & 0x1ffff;
+    int byte = (vbits >> 3) & 0x3fff;
+    int window = buf[byte] | (buf[byte + 1] << 8);
+    return (window >> (vbits & 7)) & ((1 << nbits) - 1);
+  };
+  for (int row = 0; row < height; ++row) {
+    int pred[2] = {0, 0}, nonz[2] = {0, 0}, sh = 0;
+    uint16_t* orow = out + static_cast<int64_t>(row) * width;
+    for (int col = 0; col < width; ++col) {
+      int i = col % 14;
+      if (i == 0) pred[0] = pred[1] = nonz[0] = nonz[1] = 0;
+      if (i % 3 == 2) sh = 4 >> (3 - get(2));
+      int p = i & 1;
+      if (nonz[p]) {
+        int j = get(8);
+        if (j) {
+          pred[p] -= 0x80 << sh;
+          if (pred[p] < 0 || sh == 4) pred[p] &= ~(-1 << sh);
+          pred[p] += j << sh;
+        }
+      } else {
+        nonz[p] = get(8);
+        if (nonz[p] || i > 11) pred[p] = (nonz[p] << 4) | get(4);
+      }
+      orow[col] = static_cast<uint16_t>(pred[p] & 0xffff);
+    }
+  }
+  return truncated ? static_cast<int>(RPF_ERR_TRUNCATED)
+                   : static_cast<int>(RPF_OK);
+}
+
+// ---------------------------------------------------------------------------
+// Per-CFA-tile channel means of a u16 mosaic block, one row-major pass —
+// the hot loop of the instant RAW preview (engine/instant.py
+// quick_linear_from_raw). The numpy formulation needs ph*pw strided
+// passes (36 for X-Trans: ~0.85 s at 24MP); this visits each input
+// sample exactly once. out is filled with clip((mean - black)/span, 0, 1)
+// per channel — matching the numpy path bit-for-bit up to f32 summation
+// order (gated in tests).
+//   t:    u16 [eh*ph, ew*pw] C-contiguous (a decimated or sliced mosaic)
+//   tile: i32 [ph*pw] CFA channel (0/1/2) per site, row-major
+//   out:  f32 [3, eh, ew]
+// ---------------------------------------------------------------------------
+
+int rpf_cfa_block_means(const uint16_t* t, int eh, int ew, int ph, int pw,
+                        const int32_t* tile, float black, float span,
+                        float* out) {
+  if (!t || !tile || !out || eh <= 0 || ew <= 0 || ph <= 0 || pw <= 0 ||
+      span <= 0.f)
+    return RPF_ERR_ARGS;
+  float counts[3] = {0.f, 0.f, 0.f};
+  for (int i = 0; i < ph * pw; ++i) {
+    if (tile[i] < 0 || tile[i] > 2) return RPF_ERR_ARGS;
+    counts[tile[i]] += 1.f;
+  }
+  for (int c = 0; c < 3; ++c)
+    if (counts[c] == 0.f) return RPF_ERR_ARGS;
+
+  const int64_t plane = static_cast<int64_t>(eh) * ew;
+  std::memset(out, 0, sizeof(float) * 3 * plane);
+  const int64_t row_w = static_cast<int64_t>(ew) * pw;
+
+  for (int by = 0; by < eh; ++by) {
+    float* o0 = out + static_cast<int64_t>(by) * ew;
+    float* o1 = o0 + plane;
+    float* o2 = o1 + plane;
+    float* planes_row[3] = {o0, o1, o2};
+    for (int dy = 0; dy < ph; ++dy) {
+      const uint16_t* row = t + (static_cast<int64_t>(by) * ph + dy) * row_w;
+      const int32_t* trow = tile + dy * pw;
+      for (int bx = 0; bx < ew; ++bx) {
+        const uint16_t* cell = row + static_cast<int64_t>(bx) * pw;
+        for (int dx = 0; dx < pw; ++dx) {
+          planes_row[trow[dx]][bx] += static_cast<float>(cell[dx]);
+        }
+      }
+    }
+  }
+  const float inv_span = 1.f / span;
+  for (int c = 0; c < 3; ++c) {
+    const float inv = 1.f / counts[c];
+    float* p = out + static_cast<int64_t>(c) * plane;
+    for (int64_t i = 0; i < plane; ++i) {
+      float v = (p[i] * inv - black) * inv_span;
+      p[i] = v < 0.f ? 0.f : (v > 1.f ? 1.f : v);
+    }
+  }
+  return 0;
 }
 
 }  // extern "C"

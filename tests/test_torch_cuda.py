@@ -259,3 +259,98 @@ def test_raw_kernel_never_runs_the_twin_for_cuda(dev, monkeypatch):
     with pytest.raises(ValueError, match="float32"):
         rp.raw_develop_fused(mosaic.double(), (1.0, 1.0, 1.0), np.eye(3),
                              params, np.float32(0.0))
+
+
+# -- vendor containers and lens correction on the card ----------------------
+
+def _vendor_blobs():
+    """Small vendor files from tests/torch_fixtures.py (jax-free)."""
+    import torch_fixtures as fx
+
+    from rawphotoforge_tpu_torch.io import dng, raw as rawio
+
+    rng = np.random.default_rng(23)
+    border = (9, 5, 136, 52)  # odd left/top: a BGGR active area
+    cr2 = fx.build_cr2(fx.cr2_sensor(rng, 54, 140, border), slices=(2, 48, 44),
+                       sensor_border=border, lens_model="EF 50mm f/1.8 II",
+                       fnumber=2.8)
+    arw, _ = fx.arw2_file(fx.arw2_codes(rng, 40, 128), preview="match")
+    xt = rawio.synthetic_raw(fx.scene(rng, 48, 132), "XTRANS", black_level=0)
+    m4 = fx.smooth12(rng, 42, 134, base=900)
+    raw4 = dng.RawImage(mosaic=m4, pattern="RGGB", black_level=157.0,
+                        white_level=4095.0, wb_gains=(1.8, 1.0, 1.4),
+                        xyz_to_cam=None)
+    return {
+        "a.cr2": cr2, "b.arw": arw, "c.raf": fx.raf_file(xt.mosaic, "XTRANS"),
+        "d.rw2": fx.rw2_file(fx.smooth12(rng, 42, 134, base=900), "GRBG",
+                             borders=(1, 3, 41, 131)),
+        "e.rw2": fx.rw2_file(m4, raw_format=4,
+                             preview=fx.matching_preview(raw4, 128)),
+    }
+
+
+@pytest.mark.parametrize("name", ["a.cr2", "b.arw", "c.raf", "d.rw2", "e.rw2"])
+def test_vendor_mosaic_through_the_raw_kernel(dev, name):
+    """Each vendor-decoded mosaic (odd CR2 borders, ARW2 through the gate,
+    X-Trans RAF, RW2 plain with borders and RAW4) through the RAW kernel:
+    one launch, bit for bit its twin."""
+    from rawphotoforge_tpu_torch.io import raw as rawio
+    from rawphotoforge_tpu_torch.kernels import raw_pipeline as rp
+
+    raw = rawio.with_effective_wb(rawio.parse_raw(_vendor_blobs()[name]))
+    h, w = raw.mosaic.shape
+    args = (rawio.normalized_mosaic(raw, raw.mosaic, dev), raw.wb_gains,
+            rawio.cam2srgb_for(raw), pack_params(_params()[:1], extent=(h, w),
+                                                 device=dev), np.float32(0.6))
+    kernel = "xtrans_kernel" if raw.pattern == "XTRANS" else "bayer_kernel"
+    before = dict(rp.KERNEL_LAUNCHES)
+    out = rp.raw_develop_fused(*args, pattern=raw.pattern)
+    torch.cuda.synchronize()
+    assert rp.KERNEL_LAUNCHES == dict(before, **{kernel: before[kernel] + 1})
+    assert torch.equal(out, rp.raw_develop_fused_ref(*args, pattern=raw.pattern))
+
+
+def test_vendor_batch_on_the_card(dev, tmp_path):
+    """`cli batch` of the vendor files, a gate-refused ARW2 and a warped
+    DNG: one RAW-kernel launch per Bayer/X-Trans file, one develop-kernel
+    launch each for the refused file's preview and the warped DNG."""
+    import torch_fixtures as fx
+
+    from rawphotoforge_tpu_torch.app import cli
+    from rawphotoforge_tpu_torch.io import dng, raw as rawio
+    from rawphotoforge_tpu_torch.kernels import raw_pipeline as rp
+
+    src = tmp_path / "in"
+    src.mkdir()
+    for name, blob in _vendor_blobs().items():
+        (src / name).write_bytes(blob)
+    rng = np.random.default_rng(29)
+    bad, _ = fx.arw2_file(fx.arw2_codes(rng, 40, 128),
+                          preview=fx.noise_preview(29))
+    (src / "f_bad.arw").write_bytes(bad)
+    warp = rawio.synthetic_raw(fx.scene(rng, 48, 72), "RGGB")
+    (src / "g.dng").write_bytes(dng.write_dng(warp, opcode_list_3=fx.opcode_list3(
+        warp=([[0.96, 0.05, -0.01, 0.0, 0.0, 0.0]], (0.5, 0.5)))))
+    before, dev_before = dict(rp.KERNEL_LAUNCHES), fused.LAUNCHES
+    assert cli.main(["batch", str(src), str(tmp_path / "out"), "--exposure", "0.3",
+                     "--device", str(dev)]) == 0
+    torch.cuda.synchronize()
+    assert rp.KERNEL_LAUNCHES == {"bayer_kernel": before["bayer_kernel"] + 4,
+                                  "xtrans_kernel": before["xtrans_kernel"] + 1}
+    assert fused.LAUNCHES == dev_before + 2
+    assert len(list((tmp_path / "out").iterdir())) == 7
+
+
+def test_lens_corrected_editor_on_the_card_matches_cpu(dev, tmp_path):
+    p = tmp_path / "lens.cr2"
+    p.write_bytes(_vendor_blobs()["a.cr2"])
+    eds = [PhotoEditor.open(str(p), lens_correct=True, device=d,
+                            mid_long_edge=64, low_long_edge=32)
+           for d in (dev, "cpu")]
+    assert eds[0].applied_lens_profile == eds[1].applied_lens_profile
+    assert "50mm" in eds[0].applied_lens_profile
+    for ed in eds:
+        ed.set_tone(exposure=0.4, contrast=20)
+        ed.set_curve(HUE, [0, 30000, 65535], [8000, 35000, 62000])
+    for level in (FULL, LOW):
+        _close(eds[0].apply(level).cpu(), eds[1].apply(level))

@@ -18,11 +18,18 @@ PORT = ROOT / "rawphotoforge_tpu_torch"
 _PROBE = r"""
 import importlib, json, pkgutil, sys
 import rawphotoforge_tpu_torch as pkg
-for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
-    importlib.import_module(m.name)
-print(json.dumps(sorted(k for k in sys.modules
-                        if k.split(".")[0] in ("jax", "jaxlib", "rawphotoforge_tpu", "PIL"))))
+names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
+for name in names:
+    importlib.import_module(name)
+print(json.dumps({"imported": names, "loaded": sorted(
+    k for k in sys.modules
+    if k.split(".")[0] in ("jax", "jaxlib", "rawphotoforge_tpu", "PIL"))}))
 """
+
+# The vendor containers, the decode gate and lens correction: each must be
+# among the modules the probe imports.
+SLICE_5 = ["io.vendor_packed", "io.vendor_preview", "io.cr2", "io.vendor_raw",
+           "engine.instant", "ops.lenscorr", "io.lensdb"]
 
 
 def _clean_env():
@@ -35,7 +42,9 @@ def test_importing_every_port_module_loads_no_jax_and_no_pillow():
     out = subprocess.run([sys.executable, "-c", _PROBE], cwd=ROOT, env=_clean_env(),
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
-    assert json.loads(out.stdout.strip().splitlines()[-1]) == []
+    probe = json.loads(out.stdout.strip().splitlines()[-1])
+    assert probe["loaded"] == []
+    assert {f"rawphotoforge_tpu_torch.{m}" for m in SLICE_5} <= set(probe["imported"])
 
 
 @pytest.mark.parametrize("path", sorted(

@@ -2,8 +2,9 @@
 written by both writers are equal, both readers return the same fields
 for the same file, the lossless-JPEG codec agrees, and the device
 develops (exact extent and bucket-stable padded) agree for Bayer,
-X-Trans, DefaultCrop and orientation 6. Plus the typed not-ported errors
-and the editor's RAW open."""
+X-Trans, DefaultCrop and orientation 6. Plus the editor's RAW open and
+its embedded-preview fallback (the vendor containers and OpcodeList3 are
+in test_torch_vendor.py and test_torch_lenscorr.py)."""
 
 import dataclasses
 
@@ -14,7 +15,6 @@ import torch
 
 from rawphotoforge_tpu.io import dng as jdng, ljpeg as jljpeg, raw as jraw
 
-from rawphotoforge_tpu_torch._errbase import NotPortedError
 from rawphotoforge_tpu_torch.engine.editor import FULL, PhotoEditor
 from rawphotoforge_tpu_torch.io import dng as tdng, ljpeg as tljpeg, raw as traw
 
@@ -121,24 +121,6 @@ def test_gray_world_gains_match(rng):
         == jraw.synthetic_raw(_planes(np.random.default_rng(3)), "GBRG").mosaic.tobytes()
 
 
-@pytest.mark.parametrize("head", [
-    b"II\x2a\x00\x10\x00\x00\x00CR\x02\x00" + bytes(20),
-    b"II\x55\x00" + bytes(20),
-    b"FUJIFILMCCD-RAW 0201" + bytes(20),
-])
-def test_vendor_containers_raise_not_ported(head):
-    with pytest.raises(NotPortedError, match="ROADMAP.md"):
-        traw.parse_raw(head)
-
-
-def test_opcode_list3_raises_not_ported(rng):
-    _, t = _raws(rng, "RGGB")
-    warped = dataclasses.replace(
-        t, warp_rectilinear=(np.zeros((1, 6), np.float32), np.zeros(2, np.float32)))
-    with pytest.raises(NotPortedError, match="ops/lenscorr"):
-        traw.develop_raw_image(warped, device="cpu")
-
-
 def test_editor_opens_a_dng(rng, tmp_path):
     j, t = _raws(rng, "XTRANS", orientation=6)
     path = tmp_path / "x.dng"
@@ -170,8 +152,3 @@ def test_editor_falls_back_to_the_embedded_preview(rng, monkeypatch):
     # Without a preview to open, the decode error propagates.
     with pytest.raises(tdng.DngError, match="cannot decode"):
         PhotoEditor.from_bytes(jdng.write_dng(j), "DNG", device="cpu")
-
-
-def test_editor_refuses_vendor_extensions(tmp_path):
-    with pytest.raises(NotPortedError, match="RAW input"):
-        PhotoEditor.open(str(tmp_path / "missing.cr2"), device="cpu")
