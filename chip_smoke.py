@@ -7,9 +7,9 @@ Run from the root of a checkout, on a machine with an NVIDIA card:
 
 Phases (any failure raises, and the script exits non-zero):
  1. the card's name and power limit; the builds, started together, of the
-    develop kernel and the RAW kernel (nvcc, sm_90a) and of the native
-    host library (g++), with build seconds and the ptxas register/spill
-    report;
+    develop kernel, the RAW kernel and the JPEG kernels (nvcc, sm_90a) and
+    of the native host library (g++), with build seconds and the ptxas
+    register/spill report;
  2a. the edit stack's device functions against their torch twins, bit for
     bit and exhaustively: the OKLab cube root over every f32 in [0, 2],
     the sRGB OETF over every f32 in [0, 64], and the curve rescales (a
@@ -35,19 +35,28 @@ Phases (any failure raises, and the script exits non-zero):
     M=1 / M=3 (u8 masks), sharpen 0 / 0.8, the default-curve shortcuts
     (bit-identical to the general kernel) and identity_oklch (3e-3
     bound), plus one full-size frame of each CFA;
+ 9. (run after phase 5, before the batch uses them) the three JPEG kernels
+    (csrc/jpeg_encode.cu) held against their plain twins bit for bit:
+    hand-fed worst-case blocks through the Huffman and pack kernels, then
+    37x50, 61x97, a 128x128 render with a 100x72 true extent, 24 MP and
+    45.4 MP through all three; the packed, prepacked and nibble wires'
+    files byte-identical and decoding at their true size; CUDA-event times
+    of each kernel at 24 MP beside its byte bound and its twin's time;
  6. the RAW main path: a 24 MP RGGB lossless-JPEG DNG and a 26 MP X-Trans
     DNG (orientation 6) written with the port's write_dng, developed by
     `cli batch` on the card (exactly one launch of each RAW kernel, Bayer
-    and X-Trans, no twin call); each pre-JPEG render held against the
-    composed path on the card (demosaic -> unsharp -> develop kernel) on
-    the trimmed interior; each JPEG byte for byte the encode of that
-    render oriented on the card, whose YCbCr 4:2:0 u8 planes match the
-    host's numpy rotation and YCbCr within one level;
+    and X-Trans, and of each JPEG kernel per file, no twin call); each
+    pre-JPEG render held against the composed path on the card (demosaic
+    -> unsharp -> develop kernel) on the trimmed interior; each JPEG byte
+    for byte the encode of that render oriented on the card, whose JPEG
+    blocks on the card equal the CPU twin's of the host rotation;
  7. CUDA-event timings of the RAW kernel (Bayer 24 MP and 45.4 MP,
     X-Trans 26 MP; batch flags and full curves)
     beside its bounds and the twin's time; the batch's MPix/s end to end,
     its per-image stage times (each stage's function wrapped here between
-    two synchronizes) and the card's idle share under the profiler;
+    two synchronizes: parse, upload, RAW kernel, the JPEG device wire also
+    by CUDA events, the scan fetch with its bytes, the JPEG assembly) and
+    the card's idle share under the profiler;
  8. the vendor path: a 24 MP Canon CR2 (odd sensor borders, a lens the
     bundled database knows), two 24 MP Sony ARW2 (one whose embedded
     preview matches its sensor data, one whose preview is another image),
@@ -60,8 +69,9 @@ Phases (any failure raises, and the script exits non-zero):
     against its twin on every vendor-decoded mosaic, the JPEG sizes, the
     refused ARW2 opening from its preview, the warp on the card against
     the CPU, the lens-corrected render against the exact-LUT anchor; and
-    per-file stage times (parse + decode, the gate, upload, kernels,
-    encode).
+    per-file stage times (parse + decode, the gate, upload, kernels, the
+    JPEG device wire, scan fetch and assembly), then the vendor batch's
+    MPix/s and the card's idle share under the profiler.
 
 Two other modes print only measurements:
 
@@ -124,9 +134,6 @@ BAYER_EDGE_HW = ((2, 2), (3, 5), (7, 9), (17, 65), (33, 130), (61, 133),
 RAW_FLAGS = ["--exposure", "0.5", "--contrast", "20", "--shadow", "15",
              "--highlight", "-10", "--wb-temperature", "10", "--vignette", "30",
              "--sharpness", "30"]
-# YCbCr 4:2:0 u8 on the card vs numpy on the host: the sums and the 2x2
-# chroma mean round in another order, so a sample may land one level off.
-YCC_MAX = 1
 XYZ_TO_CAM = np.array([[0.8, -0.1, -0.05], [-0.3, 1.1, 0.15],
                        [-0.05, 0.15, 0.65]])
 
@@ -832,7 +839,7 @@ def phase_raw_main_path(dev, log):
     from rawphotoforge_tpu_torch.app import cli
     from rawphotoforge_tpu_torch.core.params import pack_params
     from rawphotoforge_tpu_torch.io import image_io, jpegenc, raw as rawio
-    from rawphotoforge_tpu_torch.kernels import fused, raw_pipeline as rp
+    from rawphotoforge_tpu_torch.kernels import fused, jpeg_wire, raw_pipeline as rp
     from rawphotoforge_tpu_torch.ops import demosaic as dm
     from rawphotoforge_tpu_torch.ops.geometry import orient_exif
     from rawphotoforge_tpu_torch.ops.sharpen import unsharp_mask
@@ -851,6 +858,7 @@ def phase_raw_main_path(dev, log):
 
     rp.raw_develop_fused_ref = counted_twin
     rp.KERNEL_LAUNCHES = dict.fromkeys(rp.KERNEL_LAUNCHES, 0)  # run starts
+    jpeg_wire.KERNEL_LAUNCHES = dict.fromkeys(jpeg_wire.KERNEL_LAUNCHES, 0)
     fused.LAUNCHES = 0
     t0 = time.perf_counter()
     try:
@@ -858,16 +866,17 @@ def phase_raw_main_path(dev, log):
         torch.cuda.synchronize()
     finally:
         rp.raw_develop_fused_ref = real_twin
-    per_kernel = dict(rp.KERNEL_LAUNCHES)  # the RAW main path's run ends here
-    launches = sum(per_kernel.values())
+    # the RAW main path's run ends here
+    per_kernel = dict(rp.KERNEL_LAUNCHES, **jpeg_wire.KERNEL_LAUNCHES)
     t_main = time.perf_counter() - t0
     check(rc == 0, f"cli batch exited {rc}")
-    check(per_kernel == {"bayer_kernel": 1, "xtrans_kernel": 1},
-          f"RAW launches by kernel {per_kernel} (want one each)")
+    want = dict(bayer_kernel=1, xtrans_kernel=1,
+                **dict.fromkeys(jpeg_wire.KERNEL_LAUNCHES, len(files)))
+    check(per_kernel == want, f"batch launches by kernel {per_kernel} (want {want})")
     check(twin_calls[0] == 0, f"the RAW twin ran {twin_calls[0]} times on the "
           "main path")
     log(f"phase 6: RAW main path (cli batch of {len(files)} DNGs on the card) in "
-        f"{t_main:.2f} s; RAW kernel launches {launches} {per_kernel}, twin calls "
+        f"{t_main:.2f} s; kernel launches {per_kernel}, RAW twin calls "
         f"{twin_calls[0]}, develop kernel launches {fused.LAUNCHES}")
 
     flags = _parse_flags(RAW_FLAGS)
@@ -902,9 +911,9 @@ def phase_raw_main_path(dev, log):
         check(bool(torch.isfinite(render).all()), f"{name} render not finite")
         del mos01, planes, composed
         # What the batch did after the kernel: the file holds exactly the
-        # JPEG of this render oriented on the card, and the card's YCbCr
-        # 4:2:0 u8 planes of it match the plain host version (numpy
-        # rotation, jpegenc's numpy YCbCr) within one level.
+        # JPEG of this render oriented on the card, and the card's JPEG
+        # blocks of it (jpeg_blocks_kernel) equal the CPU twin's of the host
+        # rotation of the render, bit for bit.
         oriented = orient_exif(render, raw.orientation)
         with open(jpg, "rb") as f:
             check(f.read() == jpegenc.encode_jpeg(
@@ -914,24 +923,17 @@ def phase_raw_main_path(dev, log):
         hwc = render.cpu().numpy().transpose(1, 2, 0)
         if orientation == 6:
             hwc = np.rot90(hwc, -1)
-        plain = jpegenc._to_ycc420_np(np.ascontiguousarray(hwc.transpose(2, 0, 1)))
-        ycc_max, ycc_off = 0, 0
-        for ours, ref in zip(jpegenc.to_ycc420_u8(oriented), plain):
-            check(ours.shape == ref.shape, f"{name}: YCbCr {ours.shape} vs "
-                  f"{ref.shape}")
-            d = np.abs(ours.astype(np.int16) - ref.astype(np.int16))
-            ycc_max = max(ycc_max, int(d.max()))
-            ycc_off += int((d > 0).sum())
-        check(ycc_max <= YCC_MAX, f"{name}: card YCbCr vs host YCbCr: max "
-              f"{ycc_max} u8 (allowed {YCC_MAX})")
+        host = torch.from_numpy(np.ascontiguousarray(hwc.transpose(2, 0, 1)))
+        q = jpegenc._quant_tables(flags.quality)
+        bit_identical(jpeg_wire.blocks(oriented, *q).cpu(), jpegenc.blockify(host, *q),
+                      f"{name}: card JPEG blocks vs the CPU twin of the host rotation")
         log(f"phase 6: {name}: JPEG {upright_hw[1]}x{upright_hw[0]} decodes "
             f"(orientation {orientation}); one-pass render vs composed path "
             f"(demosaic -> unsharp -> develop kernel) on the {trim}-px-trimmed "
             f"interior: max abs err {err:.3e} (assert_close, loose 1e-2); the "
-            f"JPEG is byte for byte the encode of the card-oriented render; "
-            f"card YCbCr 4:2:0 u8 vs the host's (numpy rotation + YCbCr): max "
-            f"{ycc_max} (limit {YCC_MAX}), {ycc_off} of "
-            f"{hwc.shape[0] * hwc.shape[1] * 3 // 2} samples differ")
+            f"JPEG is byte for byte the encode of the card-oriented render; its "
+            f"blocks on the card == the CPU twin's of the host rotation, bit "
+            f"for bit")
         del render
         torch.cuda.empty_cache()
     return per_kernel, in_dir, tmp
@@ -950,54 +952,128 @@ def raw_op_count(pattern, sharpen_on):
     return 1 + demosaic + 21 + (69 if sharpen_on else 0)
 
 
+class StageClock:
+    """Wraps the function of each stage of a run: host ms between two
+    synchronizes; for a stage of kind "events" also the device ms between
+    two CUDA events, for kind "bytes" also the bytes of the arrays it
+    returns. A context manager: the functions are restored on exit."""
+
+    def __init__(self, stages):
+        self.stages = stages
+        self.ms, self.device_ms, self.nbytes, self._real = {}, {}, {}, []
+
+    def __enter__(self):
+        import torch
+
+        for mod, attr, name, kind in self.stages:
+            fn = getattr(mod, attr)
+
+            def timed(*a, _fn=fn, _name=name, _kind=kind, **k):
+                torch.cuda.synchronize()
+                ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+                ev[0].record()
+                t = time.perf_counter()
+                try:
+                    out = _fn(*a, **k)
+                    ev[1].record()
+                finally:
+                    torch.cuda.synchronize()
+                    self.ms[_name] = self.ms.get(_name, 0.0) + (
+                        time.perf_counter() - t) * 1e3
+                if _kind == "events":
+                    self.device_ms[_name] = self.device_ms.get(_name, 0.0) + (
+                        ev[0].elapsed_time(ev[1]))
+                if _kind == "bytes":
+                    self.nbytes[_name] = self.nbytes.get(_name, 0) + out.nbytes
+                return out
+
+            self._real.append((mod, attr, fn))
+            setattr(mod, attr, timed)
+        return self
+
+    def __exit__(self, *exc):
+        for mod, attr, fn in self._real:
+            setattr(mod, attr, fn)
+
+    def line(self, n=1):
+        """The stages per image (of ``n``), with device ms and bytes."""
+        parts = []
+        for name, ms in self.ms.items():
+            extra = ""
+            if name in self.device_ms:
+                extra = f" (device {self.device_ms[name] / n:.3f} by CUDA events)"
+            if name in self.nbytes:
+                extra = f" ({self.nbytes[name] / n / 1e6:.3f} MB)"
+            parts.append(f"{name} {ms / n:.2f}{extra}")
+        return ", ".join(parts)
+
+
+def jpeg_stages():
+    """The packed JPEG wire's stages: the device wire (blocks, Huffman and
+    pack kernels), the fetch of the finished scan, the native assembly."""
+    from rawphotoforge_tpu_torch import native
+    from rawphotoforge_tpu_torch.io import jpegbits
+
+    return ((jpegbits, "wire_packed_extent", "JPEG device wire", "events"),
+            (jpegbits, "fetch_scan", "scan fetch", "bytes"),
+            (native, "jpeg_encode_packed", "JPEG assembly", None))
+
+
 def staged_batch(in_dir, out_dir, dev):
-    """`cli batch` once more with the function of each stage wrapped between
-    two synchronizes: (wall ms, {stage: ms}) summed over the images. The
-    stages: host parse (LJPEG decode included), upload + normalize, the RAW
-    kernel, YCbCr 4:2:0 + u8 fetch, JPEG encode."""
+    """`cli batch` once more with the function of each stage wrapped
+    (StageClock): (wall ms, the clock) summed over the images. The stages:
+    host parse (LJPEG decode included), upload + normalize, the RAW kernel,
+    the JPEG device wire, the scan fetch, the JPEG assembly."""
     import torch
 
-    from rawphotoforge_tpu_torch import native
-    from rawphotoforge_tpu_torch.io import jpegenc, raw as rawio
+    from rawphotoforge_tpu_torch.io import raw as rawio
     from rawphotoforge_tpu_torch.kernels import raw_pipeline as rp
 
-    stage_ms = {}
-    real = []
-
-    def wrap(mod, attr, stage):
-        fn = getattr(mod, attr)
-
-        def timed(*a, **k):
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            try:
-                return fn(*a, **k)
-            finally:
-                torch.cuda.synchronize()
-                stage_ms[stage] = stage_ms.get(stage, 0.0) + (
-                    time.perf_counter() - t) * 1e3
-
-        real.append((mod, attr, fn))
-        setattr(mod, attr, timed)
-
-    for mod, attr, stage in ((rawio, "parse_raw", "parse+LJPEG decode"),
-                             (rawio, "normalized_mosaic", "upload+normalize"),
-                             (rp, "raw_develop_fused", "RAW kernel"),
-                             (jpegenc, "to_ycc420_u8", "YCbCr+fetch"),
-                             (native, "jpeg_encode_ycc420", "JPEG encode")):
-        wrap(mod, attr, stage)
-    try:
+    stages = ((rawio, "parse_raw", "parse+LJPEG decode", None),
+              (rawio, "normalized_mosaic", "upload+normalize", None),
+              (rp, "raw_develop_fused", "RAW kernel", "events"), *jpeg_stages())
+    with StageClock(stages) as clock:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         rc, _ = run_batch(in_dir, out_dir, dev)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    finally:
-        for mod, attr, fn in real:
-            setattr(mod, attr, fn)
     check(rc == 0, f"cli batch (staged) exited {rc}")
-    check(len(stage_ms) == len(real), f"stages seen: {sorted(stage_ms)}")
-    return wall_ms, stage_ms
+    check(len(clock.ms) == len(stages), f"stages seen: {sorted(clock.ms)}")
+    return wall_ms, clock
+
+
+def device_busy(run, log, what, card):
+    """Runs ``run()`` (a warm batch: (rc, its stdout)) under the profiler
+    and logs its throughput line and the card's busy and idle share of its
+    wall (device events: kernels and copies, one stream, so their sum is
+    their union)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        rc, out = run()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    check(rc == 0, f"{what} (traced) exited {rc}")
+    rate = [ln.strip() for ln in out.splitlines() if "MPix/s end-to-end" in ln]
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+    busy_ms = sum(by_name.values())
+    if busy_ms == 0.0:
+        log(f"{what}: the profiler saw no device events: the device busy "
+            "share is not measured")
+        return
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    log(f"{what} under the profiler ({rate[0] if rate else 'no rate line'}): "
+        f"{wall_ms:.1f} ms wall, device busy "
+        f"{busy_ms:.2f} ms ({100 * busy_ms / wall_ms:.2f} %, idle "
+        f"{100 - 100 * busy_ms / wall_ms:.2f} %); top device events: "
+        + "; ".join(f"{n[:60]} {t:.2f} ms" for n, t in top) + f" [{card}]")
 
 
 RAW_FRAMES = (("RGGB", BAYER_HW), ("RGGB", NORTH_STAR_HW), ("XTRANS", XTRANS_HW))
@@ -1069,41 +1145,207 @@ def phase_raw_timing(dev, card, in_dir, tmp, log):
     check(rate_line, "cli batch printed no throughput line")
     log(f"phase 7: cli batch, warm, 2 DNGs (24 MP Bayer LJPEG + 26 MP X-Trans): "
         f"{rate_line[0].strip()} [{card}]")
-    wall_ms, stage_ms = staged_batch(in_dir, os.path.join(tmp, "out_staged"), dev)
+    wall_ms, clock = staged_batch(in_dir, os.path.join(tmp, "out_staged"), dev)
     n = len(os.listdir(in_dir))
-    stage_ms["rest (file I/O, crop/orientation, EXIF)"] = wall_ms - sum(
-        stage_ms.values())
     log(f"phase 7: cli batch with each stage between synchronizes, ms/image: "
-        + ", ".join(f"{k} {v / n:.2f}" for k, v in stage_ms.items())
-        + f"; wall {wall_ms / n:.2f} ms/image [{card}]")
-
-    # The card's busy share of one more warm batch, from a profiler trace
-    # (device events: kernels and copies, one stream, so their sum is
-    # their union).
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        rc, _ = run_batch(in_dir, os.path.join(tmp, "out3"), dev)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    check(rc == 0, f"cli batch (traced) exited {rc}")
-    by_name = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
-    busy_ms = sum(by_name.values())
-    if busy_ms == 0.0:
-        log("phase 7: the profiler saw no device events: the batch's device "
-            "busy share is not measured")
-    else:
-        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
-        log(f"phase 7: cli batch under the profiler: {wall_ms:.1f} ms wall, "
-            f"device busy {busy_ms:.2f} ms ({100 * busy_ms / wall_ms:.2f} %, idle "
-            f"{100 - 100 * busy_ms / wall_ms:.2f} %); top device events: "
-            + "; ".join(f"{n[:60]} {t:.2f} ms" for n, t in top) + f" [{card}]")
+        + clock.line(n) + f", rest (file I/O, crop/orientation, EXIF) "
+        f"{(wall_ms - sum(clock.ms.values())) / n:.2f}; wall {wall_ms / n:.2f} "
+        f"ms/image [{card}]")
+    device_busy(lambda: run_batch(in_dir, os.path.join(tmp, "out3"), dev), log,
+                "phase 7: cli batch", card)
     return results
+
+
+# -- the JPEG device wires ------------------------------------------------------
+
+# Phase 9's frames: small, odd, a padded render with its true extent, and
+# the 24 MP and 45.4 MP frames; (h, w, true extent or None).
+JPEG_SHAPES = ((37, 50, None), (61, 97, None), (128, 128, (100, 72)),
+               (*BAYER_HW, None), (*NORTH_STAR_HW, None))
+JPEG_QUALITY = 95   # cli batch's default
+
+
+def jpeg_edge_blocks():
+    """Hand-fed worst cases for the Huffman and pack kernels: int16 blocks
+    with absolute DCs over 6 MCUs (grid 3 x 2): every AC at +-1023 (the
+    52-word bound), DC deltas of +-2047 (absolute DCs alternating 1023 and
+    -1024 along each chain of MCUs 3..5), ZRL runs of 16, 32 and 47 zeros,
+    a nonzero last lane (no EOB), all-zero blocks. The second array adds an
+    AC of 1024 and a DC delta past 2047, outside the baseline domain."""
+    b = np.zeros((36, 64), np.int16)
+    b[6:12, 1:] = 1023
+    b[7, 1:] = -1023
+    b[12, 17], b[13, 34], b[14, 48], b[15, 63] = 3, -5, 7, 1
+    for chain in ([18, 19, 20, 21, 24, 25, 26, 27, 30, 31, 32, 33],  # Y
+                  [22, 28, 34], [23, 29, 35]):                        # Cb, Cr
+        for i, blk in enumerate(chain):
+            b[blk, 0] = 1023 if i % 2 == 0 else -1024
+    oob = b.copy()
+    oob[20, 5] = 1024
+    oob[31, 0] = 3000
+    return b, oob
+
+
+def jpeg_scene(rng, h, w, dev):
+    """A seeded smooth scene with texture, as the batch renders look."""
+    import torch
+
+    yy = np.linspace(0.0, 1.0, h, dtype=np.float32)[:, None]
+    xx = np.linspace(0.0, 1.0, w, dtype=np.float32)[None, :]
+    planes = np.stack([0.2 + 0.6 * yy * np.ones_like(xx), 0.1 + 0.7 * xx * np.ones_like(yy),
+                       0.4 + 0.3 * np.sin(9.0 * (xx + yy))])
+    planes += 0.12 * rng.random((3, h, w), dtype=np.float32)
+    return torch.from_numpy(planes).to(dev)
+
+
+def _entropy_vs_twins(blocks, grid_c, mcu_r, mcu_c, what):
+    """The Huffman and pack kernels against their twins on ``blocks``
+    (a CUDA int16 tensor): bit for bit. Returns (words, bits, bad) of the
+    kernel."""
+    import torch
+
+    from rawphotoforge_tpu_torch.io import jpegbits, jpegenc
+    from rawphotoforge_tpu_torch.kernels import jpeg_wire as jw
+
+    words, bits, bad = jw.huffman(blocks, grid_c, mcu_r, mcu_c)
+    torch.cuda.synchronize()
+    mask = jpegbits._true_mask(blocks.shape[0], grid_c, mcu_r, mcu_c, blocks.device)
+    rbits, rwords, _, rbad = jpegbits.prepack(
+        jpegbits._dc_delta_masked(blocks, mask), mask)
+    bit_identical(words, jpegenc._i32_bits(rwords), f"{what}: Huffman kernel words")
+    bit_identical(bits, rbits.to(torch.int32), f"{what}: Huffman kernel bit lengths")
+    check(int(bad) == int(rbad), f"{what}: out-of-domain {int(bad)} vs twin {int(rbad)}")
+    w64, b64 = words.to(torch.int64) & 0xFFFFFFFF, bits.to(torch.int64)
+    for packed, twin in ((True, jpegbits.scan_from_words), (False, jpegbits.concat_words)):
+        out = jw.pack(words, bits, packed=packed)
+        torch.cuda.synchronize()
+        bit_identical(out, jpegenc._i32_bits(twin(w64, b64)),
+                      f"{what}: pack kernel ({'packed' if packed else 'prepacked'})")
+    return words, bits, bad
+
+
+def phase_jpeg_kernels(dev, card, log):
+    """Phase 9: the three JPEG kernels against their twins, bit for bit:
+    hand-fed worst-case blocks through the Huffman and pack kernels (the
+    scan also against the serial oracle packed_np); every JPEG_SHAPES frame
+    through all three (the blocks also against the CPU twin at the small
+    shapes); the packed, prepacked and nibble wires' files byte-identical,
+    each decoding at its true size; then CUDA-event times of each kernel and
+    of the device wire at 24 MP beside the byte bounds and the twins'
+    times. Returns {kernel: row of the kernel line}."""
+    import io as _io
+
+    import torch
+    from PIL import Image
+
+    from rawphotoforge_tpu_torch.io import jpegbits, jpegenc
+    from rawphotoforge_tpu_torch.kernels import jpeg_wire as jw
+
+    good, oob = jpeg_edge_blocks()
+    longest = 0
+    for grid in ((3, 2, 3), (3, 2, 2), (3, 1, 3)):
+        blocks = torch.from_numpy(good).to(dev)
+        words, bits, bad = _entropy_vs_twins(blocks, *grid, f"edge blocks {grid}")
+        longest = max(longest, int(bits.max()))
+        check(int(bad) == 0 and longest <= 32 * jpegbits.BLOCK_WORDS,
+              f"edge blocks {grid}: bad {int(bad)}, longest {longest} bits")
+        mask = jpegbits._true_mask(36, *grid)
+        ref_words, ref_bits = jpegbits.packed_np(
+            jpegbits._dc_delta_masked(torch.from_numpy(good), mask).numpy(), mask.numpy())
+        scan = jw.pack(words, bits, packed=True)
+        check(np.array_equal(jpegbits.fetch_scan(scan, ref_words.size), ref_words)
+              and int(bits.sum()) == ref_bits, f"edge blocks {grid}: scan vs packed_np")
+    _, _, bad = _entropy_vs_twins(torch.from_numpy(oob).to(dev), 3, 2, 3,
+                                  "out-of-domain blocks")
+    check(int(bad) > 0, "the out-of-domain blocks were not flagged")
+    log(f"phase 9: hand-fed blocks (+-1023 ACs: {longest}-bit blocks of "
+        f"the {32 * jpegbits.BLOCK_WORDS}-bit bound, +-2047 DC deltas, ZRL chains, "
+        f"no-EOB, padding grids 3x2/2 and 3x1): Huffman and pack kernels == "
+        f"twins bit for bit, scan == packed_np; out-of-domain lanes {int(bad)} == "
+        f"twin's")
+
+    rng = np.random.default_rng(SEED + 9)
+    qlum, qchr = jpegenc._quant_tables(JPEG_QUALITY)
+    for h, w, true_hw in JPEG_SHAPES:
+        th, tw = true_hw or (h, w)
+        planes = jpeg_scene(rng, h, w, dev)
+        blocks = jw.blocks(planes, qlum, qchr, (th, tw))
+        torch.cuda.synchronize()
+        bit_identical(blocks, jpegenc.blockify(planes, qlum, qchr, (th, tw)),
+                      f"{h}x{w} blocks kernel vs twin")
+        if h * w < 1 << 20:
+            bit_identical(blocks.cpu(), jpegenc.blockify(planes.cpu(), qlum, qchr,
+                                                         (th, tw)),
+                          f"{h}x{w} blocks kernel vs the CPU twin")
+        grid = (-(-w // 16), -(-th // 16), -(-tw // 16))
+        _, bits, _ = _entropy_vs_twins(blocks, *grid, f"{h}x{w}")
+        files = [enc(planes, JPEG_QUALITY, true_shape=true_hw) for enc in (
+            jpegbits.encode_packed_device, jpegbits.encode_prepacked_device,
+            jpegenc._encode_sparse_device)]
+        check(files[0] == files[1] == files[2],
+              f"{h}x{w}: the wires' files differ ({[len(f) for f in files]} bytes)")
+        with Image.open(_io.BytesIO(files[0])) as im:
+            im.load()
+            check(im.size == (tw, th), f"{h}x{w}: the file decodes at {im.size}")
+        log(f"phase 9: {w}x{h}" + (f" (true {tw}x{th})" if true_hw else "")
+            + f": blocks, Huffman and pack kernels == twins bit for bit"
+            + (" (blocks also == the CPU twin)" if h * w < 1 << 20 else "")
+            + f"; packed == prepacked == nibble file, {len(files[0])} bytes "
+            f"({int(bits.to(torch.int64).sum()) / 8 / (th * tw):.3f} B/px of scan), "
+            f"decodes at {tw}x{th}")
+        del planes, blocks, bits, files
+        torch.cuda.empty_cache()
+
+    # Times at 24 MP, the batch's Bayer frame.
+    h, w = BAYER_HW
+    planes = jpeg_scene(rng, h, w, dev)
+    blocks = jw.blocks(planes, qlum, qchr)
+    n = blocks.shape[0]
+    grid = (-(-w // 16), -(-h // 16), -(-w // 16))
+    words, bits, _ = jw.huffman(blocks, *grid)
+    mask = jpegbits._true_mask(n, *grid, dev)
+    nwords = int(((bits.to(torch.int64) + 31) >> 5).sum())
+    total_words = (int(bits.to(torch.int64).sum()) + 31) // 32
+    w64, b64 = words.to(torch.int64) & 0xFFFFFFFF, bits.to(torch.int64)
+    # (kernel, twin, bytes the function must move, its operations): the
+    # blocks kernel ~35 operations a coefficient (two 8-term sums, the
+    # division, the rounding) and ~20 a pixel (colour conversion, chroma
+    # mean); the Huffman walk ~4 a coefficient; the pack ~8 a word. This
+    # run's bit strings set the data-dependent bytes.
+    cases = {
+        "jpeg_blocks_kernel": (
+            lambda: jw.blocks(planes, qlum, qchr),
+            lambda: jpegenc.blockify(planes, qlum, qchr),
+            12 * h * w + 2 * 64 * n, 64 * n * 35 + 20 * h * w),
+        "jpeg_huffman_kernel": (
+            lambda: jw.huffman(blocks, *grid),
+            lambda: jpegbits.prepack(jpegbits._dc_delta_masked(blocks, mask), mask),
+            2 * 64 * n + 4 * nwords + 4 * n, 64 * n * 4),
+        "jpeg_pack_kernel": (
+            lambda: jw.pack(words, bits, packed=True),
+            lambda: jpegbits.scan_from_words(w64, b64),
+            4 * nwords + 12 * n + 4 * total_words, 8 * nwords),
+    }
+    rows = {}
+    for name, (kernel, twin, nbytes, ops) in cases.items():
+        ms = time_events(kernel, reps=20)
+        plain = time_events(twin, reps=2, warm=1)
+        t_bytes, t_ops = nbytes / PEAK_BYTES_S * 1e3, ops / PEAK_F32_S * 1e3
+        bound = max(t_bytes, t_ops)
+        by = "bytes" if t_bytes >= t_ops else "operations"
+        rows[name] = dict(ms=ms, plain_ms=plain, bound_ms=bound, bound_by=by)
+        log(f"phase 9: {name} {w}x{h} q{JPEG_QUALITY}: {ms:.4f} ms; bound "
+            f"{bound:.4f} ms by {by} (bytes {nbytes / 1e6:.1f} MB -> {t_bytes:.4f} "
+            f"ms at 3.35 TB/s; ops {ops / 1e9:.3f} G -> {t_ops:.4f} ms); "
+            f"{100 * bound / ms:.1f}% of roofline; plain twin {plain:.2f} ms (no "
+            f"yardstick); library_ms none [{card}]")
+    wire_ms = time_events(lambda: jpegbits.wire_packed_extent(planes, qlum, qchr, h, w),
+                          reps=10)
+    log(f"phase 9: the packed device wire (blocks + Huffman + cumsum + pack) "
+        f"{w}x{h}: {wire_ms:.4f} ms; its scan {4 * total_words / 1e6:.3f} MB "
+        f"({4 * total_words / (h * w):.3f} B/px; the dense wire fetched 1.5 B/px) "
+        f"[{card}]")
+    return rows
 
 
 # -- vendor containers, the decode gate, lens correction ------------------------
@@ -1221,7 +1463,7 @@ def phase_vendor_main_path(dev, log):
     from rawphotoforge_tpu_torch.core.params import EditParameters, pack_params
     from rawphotoforge_tpu_torch.engine.editor import FULL, PhotoEditor
     from rawphotoforge_tpu_torch.io import raw as rawio
-    from rawphotoforge_tpu_torch.kernels import fused, raw_pipeline as rp
+    from rawphotoforge_tpu_torch.kernels import fused, jpeg_wire, raw_pipeline as rp
     from rawphotoforge_tpu_torch.ops import demosaic as dm
     from rawphotoforge_tpu_torch.ops.lenscorr import warp_rectilinear
 
@@ -1247,6 +1489,7 @@ def phase_vendor_main_path(dev, log):
     rp.raw_develop_fused_ref = counted(real_twins[0])
     fused.develop_post_geo_fused_ref = counted(real_twins[1])
     rp.KERNEL_LAUNCHES = dict.fromkeys(rp.KERNEL_LAUNCHES, 0)  # run starts
+    jpeg_wire.KERNEL_LAUNCHES = dict.fromkeys(jpeg_wire.KERNEL_LAUNCHES, 0)
     fused.LAUNCHES = 0
     t0 = time.perf_counter()
     try:
@@ -1258,10 +1501,12 @@ def phase_vendor_main_path(dev, log):
         torch.cuda.synchronize()
     finally:
         rp.raw_develop_fused_ref, fused.develop_post_geo_fused_ref = real_twins
-    counts = dict(rp.KERNEL_LAUNCHES, develop=fused.LAUNCHES)  # run ends here
+    counts = dict(rp.KERNEL_LAUNCHES, develop=fused.LAUNCHES,
+                  **jpeg_wire.KERNEL_LAUNCHES)  # run ends here
     t_main = time.perf_counter() - t0
     check(rc == 0, f"cli batch of the vendor files exited {rc}")
-    want = {"bayer_kernel": 0, "xtrans_kernel": 0, "develop": 1}
+    want = {"bayer_kernel": 0, "xtrans_kernel": 0, "develop": 1,
+            **dict.fromkeys(jpeg_wire.KERNEL_LAUNCHES, len(VENDOR_FILES))}
     for _, _, route in VENDOR_FILES:
         want["develop" if route == "preview" else route] += 1
     check(counts == want, f"vendor path launches {counts} (want {want})")
@@ -1374,67 +1619,42 @@ def phase_vendor_main_path(dev, log):
 
 def staged_vendor_files(files, tmp, dev, card, log):
     """`cli batch` of each vendor file alone, with the function of each
-    stage wrapped between two synchronizes: per-file host ms of the parse +
-    decode and of the decode gate, the upload, the kernels, the YCbCr
-    fetch and the JPEG encode."""
+    stage wrapped (StageClock): per-file host ms of the parse + decode and
+    of the decode gate, the upload, the kernels, the JPEG device wire, the
+    scan fetch (and its bytes) and the JPEG assembly."""
     import torch
 
-    from rawphotoforge_tpu_torch import native
-    from rawphotoforge_tpu_torch.io import jpegenc, raw as rawio
+    from rawphotoforge_tpu_torch.io import raw as rawio
     from rawphotoforge_tpu_torch.kernels import fused, raw_pipeline as rp
     from rawphotoforge_tpu_torch.ops import demosaic as dm, lenscorr
 
-    stages = ((rawio, "parse_raw", "parse+decode"),
-              (rawio, "verify_memory_derived_decode", "gate"),
-              (rawio, "decode_embedded_preview", "preview decode"),
-              (rawio, "normalized_mosaic", "upload+normalize"),
-              (rp, "raw_develop_fused", "RAW kernel"),
-              (dm, "develop_raw", "demosaic"),
-              (lenscorr, "warp_rectilinear", "warp"),
-              (fused, "develop_post_geo_fused", "develop kernel"),
-              (jpegenc, "to_ycc420_u8", "YCbCr+fetch"),
-              (native, "jpeg_encode_ycc420", "JPEG encode"))
+    stages = ((rawio, "parse_raw", "parse+decode", None),
+              (rawio, "verify_memory_derived_decode", "gate", None),
+              (rawio, "decode_embedded_preview", "preview decode", None),
+              (rawio, "normalized_mosaic", "upload+normalize", None),
+              (rp, "raw_develop_fused", "RAW kernel", None),
+              (dm, "develop_raw", "demosaic", None),
+              (lenscorr, "warp_rectilinear", "warp", None),
+              (fused, "develop_post_geo_fused", "develop kernel", None),
+              *jpeg_stages())
     for name, (path, _) in files.items():
         one = os.path.join(tmp, "one_" + name.replace(".", "_"))
         os.makedirs(one)
         os.symlink(path, os.path.join(one, name))
-        stage_ms, real = {}, []
-
-        def wrap(mod, attr, stage):
-            fn = getattr(mod, attr)
-
-            def timed(*a, **k):
-                torch.cuda.synchronize()
-                t = time.perf_counter()
-                try:
-                    return fn(*a, **k)
-                finally:
-                    torch.cuda.synchronize()
-                    stage_ms[stage] = stage_ms.get(stage, 0.0) + (
-                        time.perf_counter() - t) * 1e3
-
-            real.append((mod, attr, fn))
-            setattr(mod, attr, timed)
-
-        for mod, attr, stage in stages:
-            wrap(mod, attr, stage)
-        try:
+        with StageClock(stages) as clock:
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             rc, _ = run_batch(one, one + "_out", dev)
             torch.cuda.synchronize()
             wall = (time.perf_counter() - t0) * 1e3
-        finally:
-            for mod, attr, fn in real:
-                setattr(mod, attr, fn)
         check(rc == 0, f"cli batch of {name} alone exited {rc}")
         # parse_raw runs the gate inside it; the parse + decode is the rest.
-        stage_ms["parse+decode"] = stage_ms.get("parse+decode", 0.0) - stage_ms.get(
+        clock.ms["parse+decode"] = clock.ms.get("parse+decode", 0.0) - clock.ms.get(
             "gate", 0.0)
-        stage_ms["rest"] = wall - sum(v for k, v in stage_ms.items())
-        log(f"phase 8: {name} alone, ms: " + ", ".join(
-            f"{k} {v:.2f}" for k, v in stage_ms.items()) + f"; wall {wall:.2f} "
-            f"[{card}]")
+        log(f"phase 8: {name} alone, ms: " + clock.line() + f", rest "
+            f"{wall - sum(clock.ms.values()):.2f}; wall {wall:.2f} [{card}]")
+    device_busy(lambda: run_batch(os.path.join(tmp, "in"), os.path.join(tmp, "out2"),
+                                  dev), log, "phase 8: vendor cli batch, warm", card)
 
 
 def median_time(fn, windows=5, reps=20):
@@ -1679,15 +1899,16 @@ def main() -> int:
     log(f"phase 1: torch {torch.__version__} CUDA {torch.version.cuda}; "
         f"device {kind} [{card}]")
     from rawphotoforge_tpu_torch import native
-    from rawphotoforge_tpu_torch.kernels import raw_pipeline
+    from rawphotoforge_tpu_torch.kernels import jpeg_wire, raw_pipeline
 
     # One build per source, all started together.
+    libs = (fused, raw_pipeline, jpeg_wire, native)
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(3) as pool:
-        for fut in [pool.submit(m.library) for m in (fused, raw_pipeline, native)]:
+    with ThreadPoolExecutor(len(libs)) as pool:
+        for fut in [pool.submit(m.library) for m in libs]:
             fut.result()
     log(f"phase 1: builds done in {time.perf_counter() - t0:.2f} s")
-    for mod in (fused, raw_pipeline, native):
+    for mod in libs:
         build = mod.BUILD
         log(f"phase 1: built {os.path.relpath(build['path'], ROOT)} in "
             f"{build['seconds']:.2f} s")
@@ -1711,7 +1932,8 @@ def main() -> int:
     del ed
     torch.cuda.empty_cache()
     raw_worst = phase_raw_kernel_vs_twin(dev, log)
-    raw_launches, raw_dir, raw_tmp = phase_raw_main_path(dev, log)
+    jpeg_rows = phase_jpeg_kernels(dev, card, log)
+    batch_launches, raw_dir, raw_tmp = phase_raw_main_path(dev, log)
     raw_timing = phase_raw_timing(dev, card, raw_dir, raw_tmp, log)
     shutil.rmtree(raw_tmp, ignore_errors=True)
     vendor_launches, vendor_worst, vendor_files, vendor_tmp = (
@@ -1720,13 +1942,13 @@ def main() -> int:
     shutil.rmtree(vendor_tmp, ignore_errors=True)
     # Each kernel's launches, summed over the main paths that drive it (each
     # counted from zero just before its path and read just after).
-    log(f"launches by path: develop frame {launches}, RAW batch {raw_launches}, "
+    log(f"launches by path: develop frame {launches}, RAW batch {batch_launches}, "
         f"vendor path {vendor_launches}")
     launches += vendor_launches["develop"]
-    for k in raw_launches:
-        raw_launches[k] += vendor_launches[k]
-        raw_worst[k.split("_")[0]] = max(raw_worst[k.split("_")[0]],
-                                         vendor_worst[k])
+    for k in batch_launches:
+        batch_launches[k] += vendor_launches[k]
+    for k in ("bayer_kernel", "xtrans_kernel"):
+        raw_worst[k.split("_")[0]] = max(raw_worst[k.split("_")[0]], vendor_worst[k])
 
     main_case = timing["m4_regional"]
     bayer_case = raw_timing[f"RGGB_{BAYER_HW[1]}x{BAYER_HW[0]}_batch_flags"]
@@ -1737,9 +1959,19 @@ def main() -> int:
              "rawphotoforge_tpu/kernels/fused.py:488", launches,
              max(worst.values()), main_case),
             ("raw_develop_fused/bayer_kernel", raw_src, raw_tpu,
-             raw_launches["bayer_kernel"], raw_worst["bayer"], bayer_case),
+             batch_launches["bayer_kernel"], raw_worst["bayer"], bayer_case),
             ("raw_develop_fused/xtrans_kernel", raw_src, raw_tpu,
-             raw_launches["xtrans_kernel"], raw_worst["xtrans"], xtrans_case)]
+             batch_launches["xtrans_kernel"], raw_worst["xtrans"], xtrans_case)]
+    # The JPEG kernels replace jnp code (no Pallas kernel): each is held to
+    # its twin bit for bit, so its largest difference is 0.
+    jpeg_jnp = {"jpeg_blocks_kernel": "rawphotoforge_tpu/io/jpegbits.py:668 "
+                "(jnp, no Pallas: jpegenc.py:194 blockify)",
+                "jpeg_huffman_kernel": "rawphotoforge_tpu/io/jpegbits.py:368 "
+                "(jnp, no Pallas: _lanes, _assemble, prepack)",
+                "jpeg_pack_kernel": "rawphotoforge_tpu/io/jpegbits.py:502 "
+                "(jnp, no Pallas: packed)"}
+    rows += [(name, "rawphotoforge_tpu_torch/csrc/jpeg_encode.cu", jpeg_jnp[name],
+              batch_launches[name], 0.0, row) for name, row in jpeg_rows.items()]
     table = {"kernels": [{
         "name": name, "route": "cuda", "source": src, "replaces": tpu,
         "launches": n, "max_abs_err": err, "ms": case["ms"],

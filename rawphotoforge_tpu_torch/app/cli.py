@@ -10,8 +10,10 @@ Usage:
 ``batch`` of a directory of RAW files (DNG, CR2, ARW, RW2, RAF, ...)
 develops each one through the one-pass RAW kernel (``kernels/raw_pipeline``)
 — a DNG with OpcodeList3 warps through demosaic, warp and the develop
-kernel — and writes JPEGs through the dense wire (``io/jpegenc``); other
-inputs, and ``--lens-correct``, go through the editor.
+kernel — and writes JPEGs through the packed device wire (``io/jpegenc``,
+``io/jpegbits``: the JPEG kernels of ``kernels/jpeg_wire`` emit the finished
+scan, the host writes headers and stuffing); other inputs, and
+``--lens-correct``, go through the editor.
 
 Edit flags mirror the UI sliders: exposure EV in [-6, 6]; all other
 sliders integer [-100, 100]; curves as comma-separated control points
@@ -289,8 +291,9 @@ def raw_fast_render(raw, edit: EditParameters, device):
 
 def _batch_raw_fast_path(paths, args) -> int:
     """Batch-develop RAW files: host parse (LJPEG decode included), upload
-    + normalize, one RAW-kernel launch per image, YCbCr 4:2:0 on the card
-    and the native JPEG encoder."""
+    + normalize, one RAW-kernel launch per image, then the JPEG device
+    wire (blocks, Huffman and pack kernels; the scan fetched) and the
+    native assembler."""
     from ..io import jpegenc
     from ..io.raw import decode_embedded_preview, parse_raw
 

@@ -39,11 +39,10 @@ RAW_EXTENSIONS = {
     ".rwl", ".raw",
 }
 
-# Size from which a JPEG export goes through io/jpegenc (YCbCr 4:2:0 on the
-# render's device, 1.5 B/px fetched) instead of the u8 RGB fetch + Pillow.
-# The JAX package sends these to its sparse-coefficient wires (io/jpegbits,
-# not yet ported); the port takes jpegenc's dense wire.
-SPARSE_MIN_PIXELS = 4 << 20
+# A JPEG export of at least io/jpegenc.SPARSE_MIN_PIXELS goes through
+# io/jpegenc's device wires (the packed wire first: the card emits the
+# finished entropy-coded scan, io/jpegbits) instead of the u8 RGB fetch +
+# Pillow, as the JAX package's does.
 
 
 class ImageIOError(PhotoEditorError, ValueError):
@@ -482,10 +481,11 @@ def build_exif_bytes(exif: dict | None) -> bytes | None:
 
 def encode_image(planes: torch.Tensor, fmt: str, quality: int = 95,
                  exif_bytes=None, host_crop=None) -> bytes:
-    """sRGB-encoded f32 [3,H,W] in [0,1] -> container bytes (the dense
-    export path). Quantization runs on the planes' device, so the copy to
-    the host carries 1 or 2 bytes per sample. ``host_crop`` (r0, r1, c0,
-    c1) is applied on the host after the fetch."""
+    """sRGB-encoded f32 [3,H,W] in [0,1] -> container bytes. A JPEG of at
+    least ``jpegenc.SPARSE_MIN_PIXELS`` goes through the JPEG device wires
+    (io/jpegenc.encode_jpeg); otherwise quantization runs on the planes'
+    device, so the copy to the host carries 1 or 2 bytes per sample.
+    ``host_crop`` (r0, r1, c0, c1) is applied on the host after the fetch."""
     from ..utils.transfer import fetch_np, fetch_u8_hwc, fetch_u16_hwc
 
     def hcrop(hwc):
@@ -506,10 +506,12 @@ def encode_image(planes: torch.Tensor, fmt: str, quality: int = 95,
         lin = srgb_to_linear(torch.clamp(planes, 0.0, 1.0))
         return encode_ppm16(hcrop(fetch_np(lin).transpose(1, 2, 0)))
     if fmt == "JPEG" and host_crop is None:
-        npix = int(planes.shape[-2]) * int(planes.shape[-1])
-        if npix >= SPARSE_MIN_PIXELS:
-            from . import jpegenc
+        from . import jpegenc
 
+        npix = int(planes.shape[-2]) * int(planes.shape[-1])
+        if npix >= jpegenc.SPARSE_MIN_PIXELS:
+            # Export-sized: the device wires. Previews stay on the u8 path;
+            # a crop (host_crop) cannot slice DCT blocks, so it does too.
             return jpegenc.encode_jpeg(planes, quality=quality,
                                        exif_bytes=exif_bytes)
     from PIL import Image as PILImage

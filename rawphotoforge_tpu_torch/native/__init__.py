@@ -3,7 +3,9 @@
 The source is the port's own copy of the parts of the JAX package's
 native runtime the RAW batch path calls: the lossless-JPEG scan decoder
 and bit packer (``io/ljpeg``), the baseline JPEG 4:2:0 encoder
-(``io/jpegenc``), the Sony ARW2 and Panasonic RAW4 decoders
+(``io/jpegenc``) and the stream assemblers of the JPEG device wires
+(sparse, prepacked, packed; ``io/jpegenc``, ``io/jpegbits``), the Sony ARW2
+and Panasonic RAW4 decoders
 (``io/vendor_packed``) and the per-CFA-tile block means of the decode gate
 (``engine/instant``). The library is built at first use (never at import) with
 ``g++`` and the JAX package's Makefile flags (less ``-fopenmp``) into
@@ -29,7 +31,7 @@ from pathlib import Path
 
 import numpy as np
 
-from .._errbase import PhotoEditorError
+from .._errbase import JpegWireDataError, PhotoEditorError
 
 SOURCE = Path(__file__).resolve().parent / "rpf_native.cpp"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build"
@@ -113,6 +115,20 @@ def _bind(lib) -> None:
         u8p, u8p, u8p, c, c, c, u8p, c64, ctypes.POINTER(ctypes.c_int64),
     ]
     lib.rpf_jpeg_encode_ycc420.restype = c
+    u32p = np.ctypeslib.ndpointer(np.uint32, flags="C_CONTIGUOUS")
+    i16p = np.ctypeslib.ndpointer(np.int16, flags="C_CONTIGUOUS")
+    lib.rpf_jpeg_encode_sparse.argtypes = [
+        u8p, u32p, u8p, c64, i16p, c64, c, c, c, c, c, u8p, c64,
+        ctypes.POINTER(ctypes.c_int64)]
+    lib.rpf_jpeg_encode_sparse.restype = c
+    lib.rpf_jpeg_encode_prepacked.argtypes = [
+        u16p, c64, u32p, c64, c, c, c, u8p, c64,
+        ctypes.POINTER(ctypes.c_int64)]
+    lib.rpf_jpeg_encode_prepacked.restype = c
+    lib.rpf_jpeg_encode_packed.argtypes = [
+        u32p, c64, c64, c, c, c, u8p, c64,
+        ctypes.POINTER(ctypes.c_int64)]
+    lib.rpf_jpeg_encode_packed.restype = c
     lib.rpf_arw2_decode.argtypes = [ctypes.c_char_p, c64, c, c, u16p, u16p]
     lib.rpf_arw2_decode.restype = c
     lib.rpf_pana_decode_raw4.argtypes = [ctypes.c_char_p, c64, c, c, u16p]
@@ -184,6 +200,113 @@ def jpeg_encode_ycc420(y, cb, cr, quality: int = 92) -> bytes:
             break
     if rc != 0:
         raise ValueError(f"rpf_jpeg_encode_ycc420 failed (rc={rc})")
+    return out[: out_len.value].tobytes()
+
+
+def _wire_rejected(fn: str, rc: int):
+    """The error of an assembler that refused its wire: its data broke a
+    size category or a stream-length invariant (rc 1), which encode_jpeg
+    answers with the next wire; any other code is a plain failure."""
+    if rc == 1:
+        return JpegWireDataError(f"{fn} rejected the wire data (rc={rc})")
+    return ValueError(f"{fn} failed (rc={rc})")
+
+
+def jpeg_encode_sparse(counts, bitmaps, values, escapes, h: int, w: int,
+                       quality: int = 92, grid=None) -> bytes:
+    """Baseline JFIF 4:2:0 entropy coding of the nibble wire
+    (io/jpegenc._encode_sparse_device): per-block zigzag presence bitmaps,
+    the nonzero values as packed 4-bit two's-complement nibbles (low nibble
+    first) with 0x8 escaping to the int16 ``escapes`` stream, DC slots
+    carrying same-component deltas over the whole grid, all in MCU scan
+    order. ``grid``: (mcu_rows, mcu_cols) of a padded grid larger than
+    ceil(h/16) x ceil(w/16); its padding blocks are walked for the stream's
+    alignment but not emitted."""
+    lib = library()
+    counts = np.ascontiguousarray(counts, dtype=np.uint8)
+    bitmaps = np.ascontiguousarray(bitmaps, dtype=np.uint32)
+    values = np.ascontiguousarray(values, dtype=np.uint8)
+    escapes = np.ascontiguousarray(escapes, dtype=np.int16)
+    h, w = int(h), int(w)
+    gr, gc = ((h + 15) // 16, (w + 15) // 16) if grid is None else (
+        int(grid[0]), int(grid[1]))
+    nblocks = gr * gc * 6
+    if counts.shape != (nblocks,) or bitmaps.shape != (nblocks, 2):
+        raise ValueError(
+            f"expected counts ({nblocks},) and bitmaps ({nblocks}, 2) for "
+            f"grid {gr}x{gc} MCUs, got {counts.shape}/{bitmaps.shape}")
+    out_len = ctypes.c_int64(0)
+    rc = 3
+    for bpp in (2, 4, 10):
+        cap = h * w * bpp + (1 << 16)
+        out = np.empty(cap, dtype=np.uint8)
+        rc = lib.rpf_jpeg_encode_sparse(
+            counts, bitmaps, values, values.size, escapes, escapes.size,
+            h, w, gr, gc, int(quality), out, cap, ctypes.byref(out_len))
+        if rc != 3:
+            break
+    if rc != 0:
+        raise _wire_rejected("rpf_jpeg_encode_sparse", rc)
+    return out[: out_len.value].tobytes()
+
+
+def jpeg_encode_prepacked(bit_lens, words, h: int, w: int,
+                          quality: int = 92, grid=None) -> bytes:
+    """Assemble a JFIF stream from prepacked entropy bits
+    (io/jpegbits.encode_prepacked_device: the card already Huffman-coded
+    each block into an MSB-first bit string, word-aligned per block; the
+    host shifts the strings onto the running bit position and stuffs 0x00
+    after 0xFF). ``bit_lens``: u16 [nblocks] per-block bit counts over the
+    (possibly padded) MCU grid, 0 for padding blocks; ``words``: u32, the
+    concatenated per-block word streams in scan order; ``grid`` as in
+    ``jpeg_encode_sparse``."""
+    lib = library()
+    bit_lens = np.ascontiguousarray(bit_lens, dtype=np.uint16)
+    words = np.ascontiguousarray(words, dtype=np.uint32)
+    h, w = int(h), int(w)
+    gr, gc = ((h + 15) // 16, (w + 15) // 16) if grid is None else (
+        int(grid[0]), int(grid[1]))
+    nblocks = gr * gc * 6
+    if bit_lens.shape != (nblocks,):
+        raise ValueError(
+            f"expected bit_lens ({nblocks},) for grid {gr}x{gc} MCUs, "
+            f"got {bit_lens.shape}")
+    out_len = ctypes.c_int64(0)
+    # Headers (< 1 KiB) + the scan bits with worst-case 0xFF stuffing (2x)
+    # + EOI: one attempt always suffices.
+    cap = int(bit_lens.astype(np.int64).sum()) // 8 * 2 + (1 << 16)
+    out = np.empty(cap, dtype=np.uint8)
+    rc = lib.rpf_jpeg_encode_prepacked(
+        bit_lens, bit_lens.size, words, words.size, h, w, int(quality),
+        out, cap, ctypes.byref(out_len))
+    if rc != 0:
+        raise _wire_rejected("rpf_jpeg_encode_prepacked", rc)
+    return out[: out_len.value].tobytes()
+
+
+def jpeg_encode_packed(words, total_bits: int, h: int, w: int,
+                       quality: int = 92) -> bytes:
+    """Assemble a JFIF stream from the packed scan
+    (io/jpegbits.encode_packed_device: ``words`` u32 MSB-first hold the
+    ENTIRE entropy-coded scan, ``total_bits`` its exact bit length; the
+    native side writes the headers, stuffs 0x00 after 0xFF, pads the last
+    byte with 1 bits and appends EOI)."""
+    lib = library()
+    words = np.ascontiguousarray(words, dtype=np.uint32)
+    total_bits = int(total_bits)
+    if words.ndim != 1 or total_bits < 0 or \
+            words.size != (total_bits + 31) // 32:
+        raise JpegWireDataError(
+            f"packed scan mismatch: {words.size} words for {total_bits} bits")
+    out_len = ctypes.c_int64(0)
+    # Headers (< 1 KiB) + scan with worst-case 0xFF stuffing (2x) + EOI.
+    cap = total_bits // 8 * 2 + (1 << 16)
+    out = np.empty(cap, dtype=np.uint8)
+    rc = lib.rpf_jpeg_encode_packed(
+        words, words.size, total_bits, int(h), int(w), int(quality),
+        out, cap, ctypes.byref(out_len))
+    if rc != 0:
+        raise _wire_rejected("rpf_jpeg_encode_packed", rc)
     return out[: out_len.value].tobytes()
 
 

@@ -2,7 +2,9 @@
 // package's native/rpf_native.cpp (the same source for these functions, so
 // they give the same bytes): the lossless-JPEG scan decoder and bit packer
 // behind io/ljpeg.py, the baseline JPEG 4:2:0 encoder behind
-// io/jpegenc.py's dense wire, the Sony ARW2 and Panasonic RAW4 decoders
+// io/jpegenc.py's dense wire and the stream assemblers of its device wires
+// (sparse nibbles, prepacked and packed bits; io/jpegbits.py), the Sony
+// ARW2 and Panasonic RAW4 decoders
 // behind io/vendor_packed.py, and the per-CFA-tile block means of
 // engine/instant.py. rawphotoforge_tpu_torch/native/__init__.py
 // builds this file with g++ at first use and binds it with ctypes.
@@ -559,6 +561,227 @@ int rpf_jpeg_encode_ycc420(const uint8_t* y, const uint8_t* cb,
       encode_block(&bw, zz, &pred_cb, dcc, acc_);
       block_coeffs(cr, ch, cw, my * 8, mx * 8, qchr, zz);
       encode_block(&bw, zz, &pred_cr, dcc, acc_);
+    }
+  }
+  bw.flush();
+  put_marker(&bw, 0xD9);  // EOI
+  if (bw.overflow) return 3;
+  *out_len = bw.pos;
+  return RPF_OK;
+}
+
+// Entropy-code a JFIF stream from the nibble wire's sparse quantized DCT
+// coefficients (io/jpegenc.py `_sparsify`): per block a 64-bit nonzero
+// presence bitmap over zigzag positions plus its nonzero values in
+// ascending zigzag order, the DC slot holding the delta against the
+// previous same-component block in MCU scan order (over the whole grid).
+// The value stream arrives as packed 4-bit two's-complement nibbles (low
+// nibble first; `nvalues` is the BYTE length of the packed stream) with
+// 0x8 (-8) as the escape marker: escaped values are taken, in stream
+// order, from the int16 `escapes` side channel.
+//
+// Padded grids: the coefficient arrays may cover a LARGER MCU grid
+// (grid_mcu_rows x grid_mcu_cols) than the true image (h x w). The walk
+// visits every grid block of the first ceil(h/16) MCU rows in device
+// order — consuming its values and replaying its DC delta to keep the
+// prediction chain aligned — but emits only blocks whose MCU column is
+// inside the true image. Blocks are 6 per MCU (Y tl, tr, bl, br, Cb, Cr —
+// the same walk rpf_jpeg_encode_ycc420 takes). counts[b] must equal
+// popcount(bitmap[b]) and every coefficient must fit its baseline Huffman
+// size category (<=11 bits DC, <=10 AC) — violations return RPF_ERR_ARGS
+// rather than emitting undefined symbols.
+int rpf_jpeg_encode_sparse(const uint8_t* counts, const uint32_t* bitmaps,
+                           const uint8_t* values, int64_t nvalues,
+                           const int16_t* escapes, int64_t nescapes, int h,
+                           int w, int grid_mcu_rows, int grid_mcu_cols,
+                           int quality, uint8_t* out, int64_t out_cap,
+                           int64_t* out_len) {
+  using namespace jpg;
+  const int mcu_rows = (h + 15) / 16, mcu_cols = (w + 15) / 16;
+  if (!counts || !bitmaps || !values || (!escapes && nescapes > 0) ||
+      !out || !out_len || h <= 0 || w <= 0 || h > 65535 || w > 65535 ||
+      grid_mcu_rows < mcu_rows || grid_mcu_cols < mcu_cols)
+    return RPF_ERR_ARGS;
+
+  uint16_t qlum[64], qchr[64];
+  scale_qtbl(kQLum, quality, qlum);
+  scale_qtbl(kQChr, quality, qchr);
+  HuffTable dcl, dcc, acl, acc_;
+  build_huff(kDcLumBits, kDcVals, 12, &dcl);
+  build_huff(kDcChrBits, kDcVals, 12, &dcc);
+  build_huff(kAcLumBits, kAcLumVals, 162, &acl);
+  build_huff(kAcChrBits, kAcChrVals, 162, &acc_);
+
+  BitWriter bw{out, out_cap, 0, 0, 0, false};
+  write_headers(&bw, h, w, qlum, qchr);
+
+  // chain[] accumulates absolute DCs over EVERY walked grid block (the
+  // device's delta chain runs over the whole grid); pred[] tracks only
+  // EMITTED blocks — encode_block recomputes the true image's own DC
+  // differences from the reconstructed absolutes.
+  int pred[3] = {0, 0, 0}, chain[3] = {0, 0, 0};
+  int64_t cur = 0, ecur = 0;
+  int16_t zz[64];
+  // The walk ends right AFTER the last true-image block: the value stream
+  // is fetched only up to that prefix (io/jpegenc), so the final row's
+  // trailing padding columns — and all padding rows — must not be consumed.
+  const int64_t nwalk =
+      ((static_cast<int64_t>(mcu_rows - 1) * grid_mcu_cols) + mcu_cols) * 6;
+  for (int64_t b = 0; b < nwalk && !bw.overflow; ++b) {
+    const uint64_t bm = static_cast<uint64_t>(bitmaps[2 * b]) |
+                        (static_cast<uint64_t>(bitmaps[2 * b + 1]) << 32);
+    const int n = counts[b];
+    if (n != __builtin_popcountll(bm) || cur + n > 2 * nvalues)
+      return RPF_ERR_ARGS;
+    std::memset(zz, 0, sizeof(zz));
+    for (uint64_t m = bm; m; m &= m - 1) {
+      const int64_t vi = cur++;
+      // Packed low-nibble-first: sign-extend 4-bit two's complement.
+      const int nib = (values[vi >> 1] >> ((vi & 1) * 4)) & 0xF;
+      int16_t v;
+      if (nib == 8) {  // escape: the true value rides the i16 stream
+        if (ecur >= nescapes) return RPF_ERR_ARGS;
+        v = escapes[ecur++];
+      } else {
+        v = static_cast<int16_t>(nib > 8 ? nib - 16 : nib);
+      }
+      const int i = __builtin_ctzll(m);
+      // Baseline size categories: AC <= 10 bits; the DC slot holds a
+      // delta, bounded below after accumulation.
+      if (i != 0 && bit_size(v) > 10) return RPF_ERR_ARGS;
+      zz[i] = v;
+    }
+    const int c6 = static_cast<int>(b % 6);
+    const int comp = c6 <= 3 ? 0 : c6 - 3;
+    // zz[0] is the device-computed delta; rebuild the absolute DC so
+    // encode_block's own prediction recomputes the emitted delta. The
+    // delta, the accumulated absolute, AND the emitted difference must all
+    // fit the 11-bit DC category — validating only the delta would let
+    // hostile wire data walk the accumulator past int16 and emit a
+    // corrupt stream as RPF_OK.
+    if (bit_size(zz[0]) > 11) return RPF_ERR_ARGS;
+    chain[comp] += zz[0];
+    if (bit_size(chain[comp]) > 11) return RPF_ERR_ARGS;
+    const int64_t mcu = b / 6;
+    if (mcu % grid_mcu_cols >= mcu_cols) continue;  // padding column
+    if (bit_size(chain[comp] - pred[comp]) > 11) return RPF_ERR_ARGS;
+    zz[0] = static_cast<int16_t>(chain[comp]);
+    encode_block(&bw, zz, &pred[comp], comp ? dcc : dcl, comp ? acc_ : acl);
+  }
+  // The walk must consume the value stream exactly (callers pass the
+  // trimmed (n+1)/2-byte prefix): a corrupted bitmap shifts the total
+  // coefficient count and lands here instead of emitting a structurally
+  // valid but wrong stream. (Skipped when the walk stopped early on output
+  // overflow — that path must keep returning 3 so the caller can grow
+  // the buffer and retry.)
+  if (!bw.overflow && cur != 2 * nvalues && cur + 1 != 2 * nvalues)
+    return RPF_ERR_ARGS;
+  bw.flush();
+  put_marker(&bw, 0xD9);  // EOI
+  if (bw.overflow) return 3;
+  *out_len = bw.pos;
+  return RPF_OK;
+}
+
+// Assemble a JFIF stream from PREPACKED entropy bits (io/jpegbits.py
+// `wire`): the device already Huffman-coded every block — DC size
+// category + magnitude, run/size AC symbols, ZRLs, EOB, against the same
+// Annex K.3 tables write_headers declares — into per-block MSB-first bit
+// strings, each zero-padded to a whole number of u32 words and
+// concatenated in MCU scan order (padding blocks carry lens[b] == 0 and
+// occupy no words). The host's only job is shifting each block's bits
+// onto the running (non-32-aligned) bit position and stuffing 0x00 after
+// 0xFF scan bytes. lens[b] <= 1664 (the 52-word worst case
+// io/jpegbits.BLOCK_WORDS bounds); the word stream must be consumed
+// exactly — a mismatch means a corrupted fetch, returned as RPF_ERR_ARGS
+// rather than an undecodable stream.
+int rpf_jpeg_encode_prepacked(const uint16_t* lens, int64_t nblocks,
+                              const uint32_t* words, int64_t nwords,
+                              int h, int w, int quality, uint8_t* out,
+                              int64_t out_cap, int64_t* out_len) {
+  using namespace jpg;
+  if (!lens || (!words && nwords > 0) || !out || !out_len || h <= 0 ||
+      w <= 0 || h > 65535 || w > 65535 ||
+      nblocks < static_cast<int64_t>((h + 15) / 16) * ((w + 15) / 16) * 6)
+    return RPF_ERR_ARGS;
+
+  uint16_t qlum[64], qchr[64];
+  scale_qtbl(kQLum, quality, qlum);
+  scale_qtbl(kQChr, quality, qchr);
+  BitWriter bw{out, out_cap, 0, 0, 0, false};
+  write_headers(&bw, h, w, qlum, qchr);
+
+  int64_t cur = 0;
+  for (int64_t b = 0; b < nblocks && !bw.overflow; ++b) {
+    const int nb = lens[b];
+    if (nb == 0) continue;  // padding block: not emitted
+    if (nb > 1664) return RPF_ERR_ARGS;
+    const int k = (nb + 31) / 32;
+    if (cur + k > nwords) return RPF_ERR_ARGS;
+    for (int j = 0; j < k - 1; ++j) {
+      // BitWriter::put masks with (1u << nbits) - 1, UB at 32 — feed
+      // whole words as two 16-bit halves.
+      const uint32_t v = words[cur + j];
+      bw.put(v >> 16, 16);
+      bw.put(v & 0xFFFFu, 16);
+    }
+    const int rem = nb - 32 * (k - 1);
+    const uint32_t last = words[cur + k - 1] >> (32 - rem);
+    if (rem > 16) {
+      bw.put(last >> 16, rem - 16);
+      bw.put(last & 0xFFFFu, 16);
+    } else {
+      bw.put(last, rem);
+    }
+    cur += k;
+  }
+  if (!bw.overflow && cur != nwords) return RPF_ERR_ARGS;
+  bw.flush();
+  put_marker(&bw, 0xD9);  // EOI
+  if (bw.overflow) return 3;
+  *out_len = bw.pos;
+  return RPF_OK;
+}
+
+// Assemble a JFIF stream from the PACKED scan (io/jpegbits.py
+// `wire_packed`): the device already concatenated every block's Huffman
+// bit string into ONE contiguous MSB-first stream, so the words ARE the
+// finished scan. The host's whole job is headers, draining the words
+// through the stuffing BitWriter (0x00 after 0xFF), padding the final
+// partial byte with 1 bits, and EOI — byte-identical to the prepacked and
+// sparse coders for the same coefficients by construction.
+int rpf_jpeg_encode_packed(const uint32_t* words, int64_t nwords,
+                           int64_t total_bits, int h, int w, int quality,
+                           uint8_t* out, int64_t out_cap,
+                           int64_t* out_len) {
+  using namespace jpg;
+  if ((!words && nwords > 0) || !out || !out_len || h <= 0 || w <= 0 ||
+      h > 65535 || w > 65535 || total_bits < 0 ||
+      nwords != (total_bits + 31) / 32)
+    return RPF_ERR_ARGS;
+
+  uint16_t qlum[64], qchr[64];
+  scale_qtbl(kQLum, quality, qlum);
+  scale_qtbl(kQChr, quality, qchr);
+  BitWriter bw{out, out_cap, 0, 0, 0, false};
+  write_headers(&bw, h, w, qlum, qchr);
+
+  const int64_t full = total_bits / 32;
+  for (int64_t j = 0; j < full && !bw.overflow; ++j) {
+    // BitWriter::put masks with (1u << nbits) - 1, UB at 32 — feed whole
+    // words as two 16-bit halves.
+    const uint32_t v = words[j];
+    bw.put(v >> 16, 16);
+    bw.put(v & 0xFFFFu, 16);
+  }
+  const int rem = static_cast<int>(total_bits - 32 * full);
+  if (rem > 0) {
+    const uint32_t last = words[full] >> (32 - rem);
+    if (rem > 16) {
+      bw.put(last >> 16, rem - 16);
+      bw.put(last & 0xFFFFu, 16);
+    } else {
+      bw.put(last, rem);
     }
   }
   bw.flush();

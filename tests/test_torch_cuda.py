@@ -354,3 +354,74 @@ def test_lens_corrected_editor_on_the_card_matches_cpu(dev, tmp_path):
         ed.set_curve(HUE, [0, 30000, 65535], [8000, 35000, 62000])
     for level in (FULL, LOW):
         _close(eds[0].apply(level).cpu(), eds[1].apply(level))
+
+
+# -- the JPEG device wires ------------------------------------------------------
+
+@pytest.mark.parametrize("h,w,true_hw", [(37, 50, None), (61, 97, None),
+                                         (128, 128, (100, 72)), (512, 768, None)])
+def test_jpeg_kernels_match_twins(dev, h, w, true_hw):
+    """The blocks, Huffman and pack kernels against their twins, bit for bit
+    (the blocks also against the CPU twin): one launch of each."""
+    from chip_smoke import _entropy_vs_twins, jpeg_scene
+    from rawphotoforge_tpu_torch.io import jpegenc
+    from rawphotoforge_tpu_torch.kernels import jpeg_wire as jw
+
+    planes = jpeg_scene(np.random.default_rng(h), h, w, dev)
+    th, tw = true_hw or (h, w)
+    q = jpegenc._quant_tables(95)
+    before = dict(jw.KERNEL_LAUNCHES)
+    blocks = jw.blocks(planes, *q, (th, tw))
+    torch.cuda.synchronize()
+    assert torch.equal(blocks, jpegenc.blockify(planes, *q, (th, tw)))
+    assert torch.equal(blocks.cpu(), jpegenc.blockify(planes.cpu(), *q, (th, tw)))
+    _entropy_vs_twins(blocks, -(-w // 16), -(-th // 16), -(-tw // 16), f"{h}x{w}")
+    assert jw.KERNEL_LAUNCHES == {"jpeg_blocks_kernel": before["jpeg_blocks_kernel"] + 1,
+                                  "jpeg_huffman_kernel": before["jpeg_huffman_kernel"] + 1,
+                                  "jpeg_pack_kernel": before["jpeg_pack_kernel"] + 2}
+
+
+def test_jpeg_edge_blocks_on_the_card(dev):
+    """Hand-fed worst cases (+-1023 ACs, +-2047 DC deltas, ZRL chains, no
+    EOB, padding grids) and out-of-domain coefficients through the Huffman
+    and pack kernels, against the twins and the serial oracle."""
+    from chip_smoke import _entropy_vs_twins, jpeg_edge_blocks
+    from rawphotoforge_tpu_torch.io import jpegbits
+    from rawphotoforge_tpu_torch.kernels import jpeg_wire as jw
+
+    good, oob = jpeg_edge_blocks()
+    for grid in ((3, 2, 3), (3, 2, 2), (3, 1, 3)):
+        words, bits, bad = _entropy_vs_twins(torch.from_numpy(good).to(dev), *grid,
+                                             str(grid))
+        assert int(bad) == 0 and int(bits.max()) <= 32 * jpegbits.BLOCK_WORDS
+        mask = jpegbits._true_mask(36, *grid)
+        ref, nbits = jpegbits.packed_np(
+            jpegbits._dc_delta_masked(torch.from_numpy(good), mask).numpy(), mask.numpy())
+        assert int(bits.sum()) == nbits
+        assert np.array_equal(jpegbits.fetch_scan(jw.pack(words, bits), ref.size), ref)
+    _, _, bad = _entropy_vs_twins(torch.from_numpy(oob).to(dev), 3, 2, 3, "oob")
+    assert int(bad) > 0
+
+
+@pytest.mark.parametrize("h,w,true_shape", [(61, 97, None), (128, 128, (100, 72))])
+def test_jpeg_wires_byte_identical_on_the_card(dev, h, w, true_shape):
+    """The packed, prepacked and nibble wires give one file on the card,
+    the CPU twins' file, decoding at its true size; encode_jpeg takes the
+    packed wire."""
+    import io
+
+    from PIL import Image
+
+    from chip_smoke import jpeg_scene
+    from rawphotoforge_tpu_torch.io import jpegbits, jpegenc
+
+    planes = jpeg_scene(np.random.default_rng(3), h, w, dev)
+    files = [enc(planes, 95, true_shape=true_shape) for enc in (
+        jpegbits.encode_packed_device, jpegbits.encode_prepacked_device,
+        jpegenc._encode_sparse_device)]
+    assert files[0] == files[1] == files[2]
+    assert files[0] == jpegbits.encode_packed_device(planes.cpu(), 95, true_shape=true_shape)
+    assert jpegenc.encode_jpeg(planes, 95, true_shape=true_shape) == files[0]
+    th, tw = true_shape or (h, w)
+    with Image.open(io.BytesIO(files[0])) as im:
+        assert im.size == (tw, th)

@@ -221,16 +221,16 @@ def test_save_and_reopen(rng, tmp_path):
 
 
 def test_large_jpeg_export_names_the_missing_encoder():
-    """A 4 Mpx JPEG export takes io/jpegenc's dense wire (the JAX package's
-    sparse wires are not ported), and decodes at its size."""
+    """A 4 Mpx JPEG export takes io/jpegenc's device wires — the packed
+    wire, here through the kernels' CPU twins — and decodes at its size."""
     from PIL import Image
 
-    from rawphotoforge_tpu_torch.io import jpegenc
+    from rawphotoforge_tpu_torch.io import jpegbits
 
     yy = torch.linspace(0.0, 1.0, 2048)[:, None].expand(2048, 2048)
     planes = torch.stack([yy, yy.T, 0.5 * (yy + yy.T)])
     body = image_io.encode_image(planes, "JPEG", quality=90)
-    assert body == jpegenc.encode_jpeg(planes, quality=90)
+    assert body == jpegbits.encode_packed_device(planes, 90)
     with Image.open(io.BytesIO(body)) as im:
         assert im.size == (2048, 2048)
 

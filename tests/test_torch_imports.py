@@ -26,10 +26,12 @@ print(json.dumps({"imported": names, "loaded": sorted(
     if k.split(".")[0] in ("jax", "jaxlib", "rawphotoforge_tpu", "PIL"))}))
 """
 
-# The vendor containers, the decode gate and lens correction: each must be
-# among the modules the probe imports.
+# The vendor containers, the decode gate and lens correction (slice 5), the
+# JPEG device wires (slice 6): each must be among the modules the probe
+# imports.
 SLICE_5 = ["io.vendor_packed", "io.vendor_preview", "io.cr2", "io.vendor_raw",
            "engine.instant", "ops.lenscorr", "io.lensdb"]
+SLICE_6 = ["io.jpegbits", "io.jpegenc", "kernels.jpeg_wire"]
 
 
 def _clean_env():
@@ -44,7 +46,8 @@ def test_importing_every_port_module_loads_no_jax_and_no_pillow():
     assert out.returncode == 0, out.stderr
     probe = json.loads(out.stdout.strip().splitlines()[-1])
     assert probe["loaded"] == []
-    assert {f"rawphotoforge_tpu_torch.{m}" for m in SLICE_5} <= set(probe["imported"])
+    assert {f"rawphotoforge_tpu_torch.{m}" for m in SLICE_5 + SLICE_6} <= set(
+        probe["imported"])
 
 
 @pytest.mark.parametrize("path", sorted(
