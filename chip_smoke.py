@@ -71,7 +71,20 @@ Phases (any failure raises, and the script exits non-zero):
     the CPU, the lens-corrected render against the exact-LUT anchor; and
     per-file stage times (parse + decode, the gate, upload, kernels, the
     JPEG device wire, scan fetch and assembly), then the vendor batch's
-    MPix/s and the card's idle share under the profiler.
+    MPix/s and the card's idle share under the profiler;
+ 10. masks and exports: the geodesic sweep kernel (csrc/geodesic.cu) held
+    against its plain twin bit for bit, every direction and whole floods
+    (corner seeds, a 3-seed set, a NaN pixel) at 37x50, 61x97, 128x128,
+    1x300, 300x1 and MID 853x1280, with CUDA-event times of the MID flood
+    (column and row sweeps apart) beside its byte bound, the twin and
+    torch.cumsum + torch.cummin; then on a seeded 6000x4000 session on the
+    card: add_similarity_mask (a point; labelled points), add_smart_mask (a
+    point; include + exclude: 16 + 32 geodesic launches, no twin call),
+    add_model_mask (a stub segmenter on the card), mask_overlay_srgb at MID,
+    the FULL render with the new masks against the exact-LUT anchor,
+    save_hdr_dng of it reopened by read_raw (within 2e-3, f16), `cli
+    convert` of phase 6's DNG (ljpeg and deflate, the mosaic bit for bit),
+    `cli info --verify-decode` of phase 8's matching ARW2 and `cli devices`.
 
 Two other modes print only measurements:
 
@@ -1657,6 +1670,345 @@ def staged_vendor_files(files, tmp, dev, card, log):
                                   dev), log, "phase 8: vendor cli batch, warm", card)
 
 
+# -- masks and exports (the regional-mask slice) -----------------------------
+
+# Phase 10's sweep shapes: small, odd, square, one row, one column; then the
+# MID level of a 6000x4000 photo (the editor floods at MID).
+GEODESIC_HW = ((37, 50), (61, 97), (128, 128), (1, 300), (300, 1))
+MID_HW = (853, 1280)
+FLOOD_SWEEPS = 4   # the editor's rounds: 16 launches a flood
+
+
+def same_bits(a, b, what):
+    """Bit for bit, with a NaN wherever the twin has one (torch's NaN
+    payloads differ from kernel to kernel)."""
+    import torch
+
+    nan = torch.isnan(b)
+    check(torch.equal(torch.isnan(a), nan), f"{what}: NaN positions differ")
+    keep = ~nan
+    check(torch.equal(a[keep].view(torch.int32), b[keep].view(torch.int32)),
+          f"{what}: not bit-identical (max diff "
+          f"{(a[keep] - b[keep]).abs().max().item() if keep.any() else 0:.3e})")
+
+
+def geodesic_costs(rng, h, w, dev, nan=False):
+    """Step costs of a seeded textured frame, as the editor's flood makes
+    them (ops/masking.step_costs, edge weight 12, spatial cost 0.002)."""
+    import torch
+
+    from rawphotoforge_tpu_torch.ops import masking
+
+    planes = rng.random((3, h, w), dtype=np.float32) * 0.8 + 0.1
+    if nan:
+        planes[1, h // 2, w // 3] = np.nan
+    return masking.step_costs(torch.from_numpy(planes).to(dev), 12.0, 0.002)
+
+
+def twin_flood(d, gv, gh, sweeps=FLOOD_SWEEPS):
+    from rawphotoforge_tpu_torch.kernels import geodesic
+
+    for _ in range(sweeps):
+        for direction in geodesic.DIRECTIONS:
+            geodesic.sweep_ref(d, gv, gh, direction)
+    return d
+
+
+def library_flood(d, gv, gh, sweeps=FLOOD_SWEEPS):
+    """The same relaxations in exact arithmetic as PyTorch scans: with S the
+    cumulative cost along the sweep, a down sweep is cummin(d - S) + S and
+    an up sweep its reverse (torch.cumsum + torch.cummin a sweep, plus the
+    elementwise terms). Not bit-equal to the recurrence in f32 (the 1e9
+    sentinels, cancellation): a yardstick of time only, never on the path."""
+    import torch
+
+    def scan(d, c, dim, backward):
+        zero = torch.zeros_like(c.narrow(dim, 0, 1))
+        s = torch.cat([zero, torch.cumsum(c, dim)], dim)
+        if not backward:
+            return torch.cummin(d - s, dim).values + s
+        return torch.flip(torch.cummin(torch.flip(d + s, (dim,)), dim).values,
+                          (dim,)) - s
+
+    for _ in range(sweeps):
+        d = scan(d, gv, 0, False)
+        d = scan(d, gv, 0, True)
+        d = scan(d, gh, 1, False)
+        d = scan(d, gh, 1, True)
+    return d
+
+
+def phase_geodesic_kernel(dev, card, log):
+    """Phase 10, part 1: the sweep kernel against its twin, bit for bit,
+    for every direction and for whole floods (corner seeds, a multi-seed set,
+    a NaN pixel) at GEODESIC_HW and at MID; then CUDA-event times of the
+    flood at MID, its column and row sweeps apart, beside the byte bound,
+    the twin's time and the PyTorch scans' time. Returns the kernel row."""
+    import torch
+
+    from rawphotoforge_tpu_torch.kernels import geodesic
+    from rawphotoforge_tpu_torch.ops.masking import BIG
+
+    rng = np.random.default_rng(SEED + 10)
+    for h, w in (*GEODESIC_HW, MID_HW):
+        gv, gh = geodesic_costs(rng, h, w, dev)
+        d0 = torch.from_numpy(np.where(rng.random((h, w)) < 0.05, 0.0,
+                                       rng.random((h, w)) * 40).astype(np.float32)).to(dev)
+        for direction in geodesic.DIRECTIONS:
+            ours, ref = d0.clone(), d0.clone()
+            geodesic.sweep(ours, gv, gh, direction)
+            torch.cuda.synchronize()
+            geodesic.sweep_ref(ref, gv, gh, direction)
+            same_bits(ours, ref, f"{h}x{w} {direction} sweep vs twin")
+        seed_sets = [[(0, 0)], [(h - 1, w - 1)], [(0, w - 1), (h - 1, 0), (h // 2, w // 2)]]
+        for k, seeds in enumerate(seed_sets):
+            nan = k == 2 and h == 61
+            if nan:
+                gv, gh = geodesic_costs(rng, h, w, dev, nan=True)
+            start = torch.full((h, w), BIG, device=dev)
+            for y, x in seeds:
+                start[y, x] = 0.0
+            ours = geodesic.flood(start.clone(), gv, gh)
+            torch.cuda.synchronize()
+            same_bits(ours, twin_flood(start.clone(), gv, gh),
+                      f"{h}x{w} flood from {seeds}" + (" (NaN pixel)" if nan else ""))
+            check(bool(torch.isnan(ours).any()) == nan, f"{h}x{w}: NaN propagation")
+        log(f"phase 10: geodesic sweep kernel {w}x{h}: down/up/right/left sweeps and "
+            f"floods ({FLOOD_SWEEPS * 4} sweeps) from corner, opposite-corner and "
+            f"3-seed sets == twin bit for bit"
+            + (" (one flood with a NaN pixel: NaN where the twin has NaN)"
+               if h == 61 else ""))
+
+    # Times at MID.
+    h, w = MID_HW
+    gv, gh = geodesic_costs(rng, h, w, dev)
+    d = torch.full((h, w), BIG, device=dev)
+    d[h // 2, w // 2] = 0.0
+    # The flood's work does not depend on the data (no early exit), so
+    # repeated floods of one map time the same work.
+    flood_ms = time_events(lambda: geodesic.flood(d, gv, gh), reps=10)
+    col_ms = time_events(lambda: (geodesic.sweep(d, gv, gh, "down"),
+                                  geodesic.sweep(d, gv, gh, "up")), reps=20) / 2
+    row_ms = time_events(lambda: (geodesic.sweep(d, gv, gh, "right"),
+                                  geodesic.sweep(d, gv, gh, "left")), reps=20) / 2
+    plain = time_events(lambda: twin_flood(d.clone(), gv, gh), reps=1, warm=1)
+    library = time_events(lambda: library_flood(d, gv, gh), reps=10)
+    # Each sweep reads d and its costs once and writes d once; 2 operations
+    # (an add and a min) a step.
+    col_bytes = 4 * (2 * h * w + (h - 1) * w)
+    row_bytes = 4 * (2 * h * w + h * (w - 1))
+    nbytes = 2 * FLOOD_SWEEPS * (col_bytes + row_bytes)
+    ops = 2 * FLOOD_SWEEPS * 2 * ((h - 1) * w + h * (w - 1))
+    t_bytes, t_ops = nbytes / PEAK_BYTES_S * 1e3, ops / PEAK_F32_S * 1e3
+    bound = max(t_bytes, t_ops)
+    by = "bytes" if t_bytes >= t_ops else "operations"
+    log(f"phase 10: geodesic flood {w}x{h} (MID), {4 * FLOOD_SWEEPS} launches: "
+        f"{flood_ms:.4f} ms; a column sweep (down/up) {col_ms:.4f} ms, a row sweep "
+        f"(right/left) {row_ms:.4f} ms; bound {bound:.4f} ms by {by} (bytes "
+        f"{nbytes / 1e6:.1f} MB -> {t_bytes:.4f} ms at 3.35 TB/s; ops {ops / 1e6:.1f} M "
+        f"-> {t_ops:.4f} ms); {100 * bound / flood_ms:.2f}% of roofline; plain twin "
+        f"(a torch loop over rows/columns) {plain:.2f} ms; library (torch.cumsum + "
+        f"torch.cummin a sweep) {library:.4f} ms [{card}]")
+    return dict(ms=flood_ms, plain_ms=plain, bound_ms=bound, bound_by=by,
+                library_ms=library, col_ms=col_ms, row_ms=row_ms)
+
+
+def mask_scene(h, w):
+    """A seeded 24 MP scene with regions to select: a smooth green backdrop,
+    a red disc and a dark blue band, light noise. Every region keeps its
+    chroma after bench_edit's white balance: a near-gray pixel's hue is
+    f32 noise, and bench_edit's lightness curve (hue-indexed, 31000 at hue
+    0 and 35000 at hue 1) jumps at the hue wrap, so such a pixel may take
+    either side in the kernel and in the anchor."""
+    rng = np.random.default_rng(SEED + 11)
+    yy = np.linspace(0.0, 1.0, h, dtype=np.float32)[:, None]
+    xx = np.linspace(0.0, 1.0, w, dtype=np.float32)[None, :]
+    img = np.empty((h, w, 3), np.float32)
+    img[..., 0] = 0.12 + 0.08 * yy
+    img[..., 1] = 0.35 + 0.1 * xx
+    img[..., 2] = 0.18 + 0.05 * (yy + xx)
+    disc = (yy - 0.5) ** 2 + ((xx - 0.3) * w / h) ** 2 <= 0.2 ** 2
+    img[disc] = (0.7, 0.15, 0.08)
+    img[(xx > 0.7) & (xx < 0.8) & np.ones_like(yy, bool)] = (0.03, 0.05, 0.15)
+    img += 0.002 * rng.random((h, w, 3), dtype=np.float32)
+    return img
+
+
+def phase_masks_and_exports(dev, card, log, dng_path, arw_path):
+    """Phase 10, part 2: this slice's path on a 6000x4000 session on the
+    card, every launch count zeroed just before and read just after:
+    add_similarity_mask (a point; labelled points), add_smart_mask (a point;
+    include + exclude: 16 + 32 geodesic launches, no twin call),
+    add_model_mask (an in-process stub on the card), mask_overlay_srgb at
+    MID, a FULL render with the new masks, save_hdr_dng of it; then the FULL
+    render against the exact-LUT anchor, the HDR DNG reopened by read_raw
+    against the render, `cli convert` of phase 6's DNG (ljpeg and deflate,
+    the mosaic kept bit for bit), `cli info --verify-decode` of phase 8's
+    matching ARW2 and `cli devices`. Returns the path's launches by kernel
+    (geodesic, develop, RAW and JPEG)."""
+    import torch
+
+    from rawphotoforge_tpu_torch.app import cli
+    from rawphotoforge_tpu_torch.core.color import srgb_to_linear
+    from rawphotoforge_tpu_torch.engine.editor import FULL, MID, PhotoEditor
+    from rawphotoforge_tpu_torch.io import dng, raw as rawio
+    from rawphotoforge_tpu_torch.kernels import fused, geodesic, jpeg_wire
+    from rawphotoforge_tpu_torch.kernels import raw_pipeline as rp
+    from rawphotoforge_tpu_torch.utils import transfer
+
+    from rawphotoforge_tpu_torch.core.params import EditParameters
+
+    h, w = PHOTO_HW
+    img = mask_scene(h, w)
+    main_edit = EditParameters()
+    bench_edit(main_edit)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_masks_")
+    hdr_path = os.path.join(tmp, "render.dng")
+    disc_xy = (int(0.3 * w), h // 2)
+
+    def stub(rgb_u8, point_xy):
+        """A segmenter stand-in on the card: +1 in a 300-px disc around the
+        click, the red channel's excess elsewhere."""
+        t = torch.from_numpy(rgb_u8).to(dev).to(torch.float32)
+        yy = torch.arange(t.shape[0], device=dev, dtype=torch.float32)[:, None]
+        xx = torch.arange(t.shape[1], device=dev, dtype=torch.float32)[None, :]
+        inside = (xx - point_xy[0]) ** 2 + (yy - point_xy[1]) ** 2 <= 300.0 ** 2
+        return torch.where(inside, 1.0, t[..., 0] / 255.0 - 1.0)[::4, ::4]
+
+    twin_calls = [0]
+    real_twin = geodesic.sweep_ref
+
+    def counted(*a, **k):
+        twin_calls[0] += 1
+        return real_twin(*a, **k)
+
+    walls = {}
+
+    def timed(name, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        walls[name] = (time.perf_counter() - t0) * 1e3
+        return out
+
+    geodesic.sweep_ref = counted
+    geodesic.KERNEL_LAUNCHES = dict.fromkeys(geodesic.KERNEL_LAUNCHES, 0)  # run starts
+    rp.KERNEL_LAUNCHES = dict.fromkeys(rp.KERNEL_LAUNCHES, 0)
+    jpeg_wire.KERNEL_LAUNCHES = dict.fromkeys(jpeg_wire.KERNEL_LAUNCHES, 0)
+    fused.LAUNCHES = 0
+    t0 = time.perf_counter()
+    try:
+        ed = PhotoEditor.from_rgb_f32(img, device=dev)
+        # bench_edit's curves: no identity_oklch shortcut, so the kernel
+        # render and the exact-LUT anchor compute the same stack.
+        ed.load_preset_json(json.dumps({"version": 1, "crop": None, "masks": [
+            {"name": "main", "params": main_edit.to_json()}]}))
+        timed("add_similarity_mask (a point)", lambda: ed.add_similarity_mask(
+            "sim", disc_xy, color_tolerance=0.15))
+        timed("add_similarity_mask (3 labelled points)", lambda: ed.add_similarity_mask(
+            "sim_pts", points_xy=[disc_xy, (int(0.75 * w), h // 2), (w // 10, h // 10)],
+            labels=[1, 0, 1], color_tolerance=0.2))
+        timed("add_smart_mask (a point)", lambda: ed.add_smart_mask(
+            "smart", disc_xy, tolerance=0.5))
+        smart_launches = geodesic.KERNEL_LAUNCHES["geodesic_sweep_kernel"]
+        timed("add_smart_mask (include + exclude)", lambda: ed.add_smart_mask(
+            "smart_pts", points_xy=[(w // 10, h // 10), (int(0.9 * w), h // 10)],
+            labels=[1, 0], tolerance=0.5))
+        timed("add_model_mask (a stub on the card)", lambda: ed.add_model_mask(
+            "model", disc_xy, segmenter=stub))
+        for k, name in enumerate(("smart", "sim", "smart_pts"), start=1):
+            ed.set_tone(exposure=0.5 - 0.3 * k, contrast=10 * k, mask_name=name)
+        overlay = timed("mask_overlay_srgb (MID)", lambda: ed.mask_overlay_srgb("smart", MID))
+        full = timed("FULL render (M=6)", lambda: ed.apply(FULL))
+        with StageClock(((transfer, "fetch_np", "fetch", "bytes"),
+                         (dng, "write_dng", "encode", None))) as clock:
+            timed("save_hdr_dng (24 MP, f16)", lambda: ed.save_hdr_dng(hdr_path))
+    finally:
+        geodesic.sweep_ref = real_twin
+    launches = dict(geodesic.KERNEL_LAUNCHES, develop=fused.LAUNCHES,
+                    **rp.KERNEL_LAUNCHES, **jpeg_wire.KERNEL_LAUNCHES)  # run ends
+    t_main = time.perf_counter() - t0
+    check(smart_launches == 4 * FLOOD_SWEEPS, f"one-point smart mask: {smart_launches} "
+          f"geodesic launches (want {4 * FLOOD_SWEEPS})")
+    check(launches["geodesic_sweep_kernel"] == 3 * 4 * FLOOD_SWEEPS,
+          f"geodesic launches {launches['geodesic_sweep_kernel']} (want "
+          f"{3 * 4 * FLOOD_SWEEPS}: one flood, then an include and an exclude flood)")
+    check(twin_calls[0] == 0, f"the geodesic twin ran {twin_calls[0]} times")
+    check(launches["develop"] > 0, "the mask path never launched the develop kernel")
+    log(f"phase 10: masks and exports on a {w}x{h} session (similarity x2, smart x2, "
+        f"model, overlay, FULL render, HDR DNG) in {t_main:.2f} s; launches {launches}, "
+        f"geodesic twin calls {twin_calls[0]}")
+    log("phase 10: host wall, ms: " + ", ".join(
+        f"{k} {v:.2f}" for k, v in walls.items()) + f"; HDR DNG stages: {clock.line()}, "
+        f"{os.path.getsize(hdr_path)} bytes [{card}]")
+
+    # Each mask selects part of the frame, the prompts' pixels among them.
+    mh, mw = ed.level_shape(MID)
+    for name in ("sim", "sim_pts", "smart", "smart_pts", "model"):
+        m = ed._find(name)
+        cover = float(m.data_full.float().mean())
+        check(0.0 < cover < 1.0 and m.logits.shape == (h, w)
+              and np.isfinite(m.logits).all(), f"mask {name}: cover {cover}")
+        log(f"phase 10: mask {name}: {100 * cover:.2f} % of the frame selected")
+    for name in ("sim", "smart", "model"):
+        check(int(ed._find(name).data_full[disc_xy[1], disc_xy[0]]) == 1,
+              f"mask {name} misses its prompt pixel")
+    check(tuple(overlay.shape) == (3, mh, mw) and bool(torch.isfinite(overlay).all())
+          and float(overlay.min()) >= 0.0 and float(overlay.max()) <= 1.0,
+          f"overlay {tuple(overlay.shape)}")
+    kernel_full = full.clone()
+    ed.use_kernel = False
+    err = compare(kernel_full, ed.apply(FULL),
+                  what="FULL render with the new masks vs exact-LUT anchor")
+    ed.use_kernel = True
+    log(f"phase 10: FULL render with the 5 new masks (M=6) vs exact-LUT anchor: "
+        f"max abs err {err:.3e} (assert_close); overlay {mw}x{mh} in [0, 1]")
+
+    got, _ = rawio.read_raw(hdr_path, device=dev)
+    want = srgb_to_linear(kernel_full)
+    check(tuple(got.shape) == tuple(want.shape), f"HDR DNG reopens as {tuple(got.shape)}")
+    hdr_err = float((got - want).abs().max())
+    check(hdr_err <= 2e-3, f"HDR DNG round trip off by {hdr_err:.3e} (f16 bound 2e-3)")
+    log(f"phase 10: HDR DNG {w}x{h} reopened by read_raw on the card: max abs err "
+        f"{hdr_err:.3e} against the linear render (f16 bound 2e-3)")
+    del ed, full, kernel_full, got, want, overlay
+    torch.cuda.empty_cache()
+
+    # The host commands.
+    with open(dng_path, "rb") as f:
+        src = rawio.parse_raw(f.read(), apply_opcodes=False)
+    for codec in ("ljpeg", "deflate"):
+        out = os.path.join(tmp, f"convert_{codec}.dng")
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(["convert", dng_path, out, "--codec", codec])
+        ms = (time.perf_counter() - t0) * 1e3
+        check(rc == 0, f"cli convert --codec {codec} exited {rc}")
+        with open(out, "rb") as f:
+            back = rawio.parse_raw(f.read(), apply_opcodes=False)
+        check(np.array_equal(back.mosaic, src.mosaic) and back.pattern == src.pattern,
+              f"cli convert --codec {codec}: the mosaic changed")
+        log(f"phase 10: cli convert {os.path.basename(dng_path)} --codec {codec}: "
+            f"{buf.getvalue().strip()}; mosaic bit for bit; {ms:.0f} ms [{card}]")
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(["info", arw_path, "--verify-decode", "--device", str(dev)])
+    lines = buf.getvalue().strip().splitlines()
+    check(rc == 0 and lines and lines[-1].endswith("-> ok"),
+          f"cli info --verify-decode exited {rc}: {lines[-1:] }")
+    log(f"phase 10: cli info --verify-decode {os.path.basename(arw_path)}: "
+        f"{lines[0]} ... {lines[-1]}")
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(["devices"])
+    check(rc == 0 and buf.getvalue().startswith("[0] cuda: "), f"cli devices: {rc}")
+    log(f"phase 10: cli devices: {buf.getvalue().strip()}")
+    shutil.rmtree(tmp, ignore_errors=True)
+    return launches
+
+
 def median_time(fn, windows=5, reps=20):
     """The median over ``windows`` CUDA-event windows of ``reps`` launches."""
     return sorted(time_events(fn, reps=reps) for _ in range(windows))[windows // 2]
@@ -1899,10 +2251,10 @@ def main() -> int:
     log(f"phase 1: torch {torch.__version__} CUDA {torch.version.cuda}; "
         f"device {kind} [{card}]")
     from rawphotoforge_tpu_torch import native
-    from rawphotoforge_tpu_torch.kernels import jpeg_wire, raw_pipeline
+    from rawphotoforge_tpu_torch.kernels import geodesic, jpeg_wire, raw_pipeline
 
     # One build per source, all started together.
-    libs = (fused, raw_pipeline, jpeg_wire, native)
+    libs = (fused, raw_pipeline, jpeg_wire, geodesic, native)
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(libs)) as pool:
         for fut in [pool.submit(m.library) for m in libs]:
@@ -1935,18 +2287,22 @@ def main() -> int:
     jpeg_rows = phase_jpeg_kernels(dev, card, log)
     batch_launches, raw_dir, raw_tmp = phase_raw_main_path(dev, log)
     raw_timing = phase_raw_timing(dev, card, raw_dir, raw_tmp, log)
-    shutil.rmtree(raw_tmp, ignore_errors=True)
     vendor_launches, vendor_worst, vendor_files, vendor_tmp = (
         phase_vendor_main_path(dev, log))
     staged_vendor_files(vendor_files, vendor_tmp, dev, card, log)
+    geodesic_row = phase_geodesic_kernel(dev, card, log)
+    mask_launches = phase_masks_and_exports(
+        dev, card, log, os.path.join(raw_dir, "bayer24.dng"),
+        vendor_files["sony24.arw"][0])
+    shutil.rmtree(raw_tmp, ignore_errors=True)
     shutil.rmtree(vendor_tmp, ignore_errors=True)
     # Each kernel's launches, summed over the main paths that drive it (each
     # counted from zero just before its path and read just after).
     log(f"launches by path: develop frame {launches}, RAW batch {batch_launches}, "
-        f"vendor path {vendor_launches}")
-    launches += vendor_launches["develop"]
+        f"vendor path {vendor_launches}, masks and exports {mask_launches}")
+    launches += vendor_launches["develop"] + mask_launches["develop"]
     for k in batch_launches:
-        batch_launches[k] += vendor_launches[k]
+        batch_launches[k] += vendor_launches[k] + mask_launches[k]
     for k in ("bayer_kernel", "xtrans_kernel"):
         raw_worst[k.split("_")[0]] = max(raw_worst[k.split("_")[0]], vendor_worst[k])
 
@@ -1972,11 +2328,17 @@ def main() -> int:
                 "(jnp, no Pallas: packed)"}
     rows += [(name, "rawphotoforge_tpu_torch/csrc/jpeg_encode.cu", jpeg_jnp[name],
               batch_launches[name], 0.0, row) for name, row in jpeg_rows.items()]
+    # The geodesic sweep replaces a lax.scan (no Pallas kernel); it is held
+    # to its twin bit for bit. Its times are one flood at MID (16 launches);
+    # library_ms is torch.cumsum + torch.cummin a sweep (two calls).
+    rows.append(("geodesic_sweep_kernel", "rawphotoforge_tpu_torch/csrc/geodesic.cu",
+                 "rawphotoforge_tpu/ops/masking.py:123-199 (lax.scan, no Pallas)",
+                 mask_launches["geodesic_sweep_kernel"], 0.0, geodesic_row))
     table = {"kernels": [{
         "name": name, "route": "cuda", "source": src, "replaces": tpu,
         "launches": n, "max_abs_err": err, "ms": case["ms"],
         "plain_ms": case["plain_ms"], "bound_ms": case["bound_ms"],
-        "bound_by": case["bound_by"], "library_ms": None,
+        "bound_by": case["bound_by"], "library_ms": case.get("library_ms"),
     } for name, src, tpu, n, err, case in rows]}
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps(table))

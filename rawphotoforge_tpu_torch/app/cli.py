@@ -1,11 +1,21 @@
 """Command-line tool of the port (the JAX package's ``app/cli.py``
-``develop`` and ``batch`` subcommands, with the same edit flags).
+``info``, ``develop``, ``batch``, ``convert`` and ``devices`` subcommands,
+with the same flags).
 
 Usage:
+  python -m rawphotoforge_tpu_torch.app.cli info IMAGE [--preview OUT.jpg]
+      [--verify-decode] [--lens-db PATH] [--device cuda|cpu]
   python -m rawphotoforge_tpu_torch.app.cli develop IN OUT [edit flags]
       [--device cuda|cpu]
   python -m rawphotoforge_tpu_torch.app.cli batch IN_DIR OUT_DIR
-      [edit flags] [--device cuda|cpu]
+      [edit flags] [--no-mesh] [--device cuda|cpu]
+  python -m rawphotoforge_tpu_torch.app.cli convert IN OUT.dng
+      [--codec ljpeg|deflate] [--tile HxW] [--no-preview]
+  python -m rawphotoforge_tpu_torch.app.cli devices
+
+``develop`` to a ``.dng`` writes the scene-linear render as a float
+LinearRaw DNG (``PhotoEditor.save_hdr_dng``). ``convert`` and ``devices``
+are host commands; ``info`` decodes the image on ``--device``.
 
 ``batch`` of a directory of RAW files (DNG, CR2, ARW, RW2, RAF, ...)
 develops each one through the one-pass RAW kernel (``kernels/raw_pipeline``)
@@ -125,20 +135,86 @@ def _apply_edit_flags(ed: PhotoEditor, args):
     _set_edit_flags(ed, args)
 
 
+def cmd_info(args) -> int:
+    if args.preview:
+        from ..io.dng import extract_preview
+
+        with open(args.image, "rb") as f:
+            jpeg = extract_preview(f.read())
+        if jpeg is None:
+            print("no embedded JPEG preview found")
+        else:
+            with open(args.preview, "wb") as f:
+                f.write(jpeg)
+            print(f"embedded preview: {len(jpeg)} bytes -> {args.preview}")
+    from ..io.raw import decode_embedded_preview, is_raw_image
+
+    try:
+        planes, exif = image_io.read_image(args.image, device=args.device)
+    except PhotoEditorError as e:
+        if not is_raw_image(args.image):
+            raise
+        with open(args.image, "rb") as f:
+            res = decode_embedded_preview(f.read(), args.device)
+        if res is None:
+            raise
+        planes, exif = res
+        print(f"sensor data not decodable ({e}); dimensions are the "
+              f"embedded camera preview's")
+    _, h, w = planes.shape
+    print(f"{args.image}: {w}x{h} ({w * h / 1e6:.1f} MPix)")
+    for k, v in sorted(exif.items()):
+        if k.startswith("_"):
+            continue  # _exif_bytes: the raw APP1 blob, not a field
+        print(f"  {k}: {v}")
+    if exif.get("LensModel") or exif.get("Model"):
+        # What --lens-correct would apply, with its provenance.
+        from ..io.lensdb import LensDatabase
+
+        prof = LensDatabase.load(args.lens_db).profile_from_exif(exif)
+        if prof is not None:
+            prov = (" (APPROXIMATE bundled profile, not calibrated data)"
+                    if prof.approximate else " (calibrated)")
+            print(f"  lens profile match: {prof.name}{prov}")
+    if args.verify_decode:
+        # Silent-wrong detector for vendor RAW decodes: the developed sensor
+        # data against the file's own embedded camera preview.
+        from ..io.vendor_raw import CORRELATION_GATE, preview_correlation
+
+        if not is_raw_image(args.image):
+            print("verify-decode: not a RAW container, nothing to verify")
+            return 0
+        try:
+            with open(args.image, "rb") as f:
+                corr = preview_correlation(f.read(), device=args.device)
+        except PhotoEditorError as e:
+            print(f"verify-decode: sensor data not decodable ({e})")
+            return 0
+        if corr is None:
+            print("verify-decode: no embedded preview to correlate against")
+            return 0
+        verdict = ("ok" if corr >= CORRELATION_GATE
+                   else f"SUSPECT (below gate {CORRELATION_GATE})")
+        print(f"verify-decode: preview correlation {corr:.4f} -> {verdict}")
+        if corr < CORRELATION_GATE:
+            return 1
+    return 0
+
+
 def cmd_develop(args) -> int:
-    if args.output.lower().endswith(".dng"):
-        raise PhotoEditorError(
-            "the .dng HDR export is not ported yet (ROADMAP.md, still to "
-            "port: HDR DNG export)")
+    # A .dng output exports the scene-linear render (float LinearRaw DNG);
+    # everything else is checked as a display format before rendering.
+    hdr_out = args.output.lower().endswith(".dng")
     if args.bit_depth == 16 and not args.output.lower().endswith(
             (".png", ".ppm")):
         raise image_io.ImageIOError(
             "--bit-depth 16 needs a .png or .ppm output")
-    fmt = image_io.format_for_path(args.output)
-    if fmt == "DNG":
+    if not hdr_out and image_io.format_for_path(args.output) == "DNG":
+        # A vendor RAW extension maps to "DNG"; only .dng is the HDR export.
         raise image_io.ImageIOError(
-            f"cannot develop to {os.path.splitext(args.output)[1]}; use a "
-            "display format (.jpg/.png/.webp/.tif/.ppm)")
+            f"cannot develop to {os.path.splitext(args.output)[1]}; use .dng "
+            "for scene-linear HDR or a display format "
+            "(.jpg/.png/.webp/.tif/.ppm)")
     t0 = time.perf_counter()
     ed = PhotoEditor.open(args.input, use_kernel=not args.exact_path,
                           lens_correct=args.lens_correct,
@@ -155,7 +231,10 @@ def cmd_develop(args) -> int:
     ed.apply(FULL, cropped=False)
     synchronize(ed.device)
     t_dev = time.perf_counter() - t1
-    ed.save(args.output, quality=args.quality, bit_depth=args.bit_depth)
+    if hdr_out:
+        ed.save_hdr_dng(args.output)
+    else:
+        ed.save(args.output, quality=args.quality, bit_depth=args.bit_depth)
     t_total = time.perf_counter() - t0
     h, w = ed.shape
     mpix = h * w / 1e6
@@ -386,9 +465,75 @@ def cmd_batch(args) -> int:
     return 0
 
 
+def cmd_convert(args) -> int:
+    """Transcode a RAW file to a compressed DNG, the pixel data bit for bit:
+    ``--codec ljpeg`` (default) writes lossless JPEG with per-image optimal
+    Huffman tables, ``--codec deflate`` Compression=8 with the CFA-pitch
+    predictor. Stored values pass through verbatim and opcode lists are
+    re-serialized, not applied; the embedded preview is carried over."""
+    from ..io.dng import extract_preview, write_dng
+    from ..io.raw import parse_raw
+
+    with open(args.input, "rb") as f:
+        src = f.read()
+    raw = parse_raw(src, apply_opcodes=False)
+    preview = None if args.no_preview else extract_preview(src)
+    tile = None
+    if args.tile:
+        try:
+            th, tw = (int(v) for v in args.tile.split("x"))
+        except ValueError as e:
+            raise PhotoEditorError(
+                f"bad tile {args.tile!r} (want 'HxW', e.g. 256x256)") from e
+        tile = (th, tw)
+    if args.codec == "deflate":
+        out = write_dng(raw, compression=8, predictor=34892, tile=tile,
+                        preview_jpeg=preview)
+    else:
+        out = write_dng(raw, compression=7, tile=tile, preview_jpeg=preview)
+    with open(args.output, "wb") as f:
+        f.write(out)
+    h, w = raw.mosaic.shape[:2]
+    print(f"converted {w}x{h} {raw.pattern} mosaic: "
+          f"{len(src)} -> {len(out)} bytes "
+          f"({len(src) / max(len(out), 1):.2f}x)")
+    return 0
+
+
+def cmd_devices(args) -> int:
+    """List the CUDA devices (the GPU adapter picker,
+    settings_window.gd:46-49). The CPU is not an accelerator: with no card
+    this says so and fails."""
+    import torch
+
+    n = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    if n == 0:
+        print("no CUDA device is available", file=sys.stderr)
+        return 1
+    for i in range(n):
+        props = torch.cuda.get_device_properties(i)
+        print(f"[{i}] cuda: {props.name} ({props.total_memory / 2**30:.1f} GiB, "
+              f"{props.multi_processor_count} SMs)")
+    return 0
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="rawphotoforge-tpu-torch")
     sub = ap.add_subparsers(dest="cmd", required=True)
+    p_info = sub.add_parser("info", help="print image dims + EXIF")
+    p_info.add_argument("image")
+    p_info.add_argument("--preview", type=str, default=None,
+                        help="extract the embedded JPEG preview to this path")
+    p_info.add_argument("--verify-decode", action="store_true",
+                        help="correlate the developed sensor decode against "
+                             "the embedded camera preview (exit 1 below the "
+                             "0.9 gate)")
+    p_info.add_argument("--lens-db", type=str, action="append", default=None,
+                        help="extra lensfun XML file/dir for the lens "
+                             "profile match line (repeatable)")
+    p_info.add_argument("--device", type=str, default="cuda",
+                        help="torch device of the decode (default: the card)")
+    p_info.set_defaults(fn=cmd_info)
     p_dev = sub.add_parser("develop", help="develop one image")
     p_dev.add_argument("input")
     p_dev.add_argument("output")
@@ -397,8 +542,24 @@ def main(argv=None) -> int:
     p_batch = sub.add_parser("batch", help="develop a directory of images")
     p_batch.add_argument("input_dir")
     p_batch.add_argument("output_dir")
+    p_batch.add_argument("--no-mesh", action="store_true",
+                         help="the single-device loop (the only one the port "
+                              "has so far)")
     _add_edit_flags(p_batch)
     p_batch.set_defaults(fn=cmd_batch)
+    p_cv = sub.add_parser("convert", help="transcode a RAW to a compressed DNG")
+    p_cv.add_argument("input")
+    p_cv.add_argument("output")
+    p_cv.add_argument("--tile", type=str, default=None,
+                      help='tile size "HxW" (e.g. 256x256); default: one strip')
+    p_cv.add_argument("--codec", choices=("ljpeg", "deflate"), default="ljpeg",
+                      help="DNG compression: lossless JPEG (7) or deflate (8)")
+    p_cv.add_argument("--no-preview", action="store_true",
+                      help="do not carry the source's embedded JPEG preview "
+                           "into the output")
+    p_cv.set_defaults(fn=cmd_convert)
+    p_ls = sub.add_parser("devices", help="list the CUDA devices")
+    p_ls.set_defaults(fn=cmd_devices)
     args = ap.parse_args(argv)
     try:
         return args.fn(args)

@@ -17,8 +17,13 @@ invert raw_photo_forge.py:2552):
 Sessions live on ``device`` (the card unless the caller asks for the CPU).
 ``open(lens_correct=...)`` applies a lens profile resolved from EXIF
 (``io/lensdb`` -> ``ops/lenscorr``) to the original at load time.
-Similarity/smart/model masks, host instant previews, the sparse JPEG
-export and HDR DNG export are not ported yet (ROADMAP.md).
+Regional masks come as finished logits (``add_mask``) or from a point
+prompt on the current render: colour similarity, the geodesic smart select
+(``ops/masking``; its flood runs on the sweep kernel, ``kernels/geodesic``)
+or an external segmenter (``engine/segmenter``); ``mask_overlay_srgb``
+shows one. ``save_hdr_dng`` exports the scene-linear render as a float
+LinearRaw DNG. Host instant previews and the sparse JPEG export are not
+ported yet (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -31,8 +36,8 @@ import numpy as np
 import torch
 
 from .._device import resolve_device
-from .._errbase import NotPortedError, PhotoEditorError
-from ..core.color import linear_to_srgb
+from .._errbase import PhotoEditorError
+from ..core.color import linear_to_srgb, srgb_to_linear
 from ..core.params import EditParameters, default_curve_slots, pack_params
 from ..io import image_io
 from ..kernels import fused
@@ -85,6 +90,29 @@ def _pad_to_bucket(arr: torch.Tensor, edge: bool) -> torch.Tensor:
     rows = torch.clamp(torch.arange(ph, device=arr.device), max=h - 1)
     cols = torch.clamp(torch.arange(pw, device=arr.device), max=w - 1)
     return arr[..., rows, :][..., cols]
+
+
+def _normalize_points(point_xy, points_xy, labels):
+    """The point prompt of the three selection APIs: a single ``point_xy``
+    OR labelled ``points_xy``/``labels`` (v1 predictor interface,
+    python-legacy editor.py:1147-1152). Returns ([(x, y), ...], [1/0, ...]);
+    labels default to all-include."""
+    if points_xy is not None:
+        pts = [(int(p[0]), int(p[1])) for p in points_xy]
+        if not pts:
+            raise ValueError("points_xy is empty")
+        if labels is None:
+            labs = [1] * len(pts)
+        else:
+            labs = [1 if int(v) else 0 for v in labels]
+            if len(labs) != len(pts):
+                raise ValueError(f"{len(labs)} labels for {len(pts)} points")
+        if point_xy is not None:
+            raise ValueError("pass point_xy OR points_xy, not both")
+        return pts, labs
+    if point_xy is None:
+        raise ValueError("a point prompt is required")
+    return [(int(point_xy[0]), int(point_xy[1]))], [1]
 
 
 class MaskNotFound(PhotoEditorError, KeyError):
@@ -315,6 +343,89 @@ class PhotoEditor:
 
     def mask_names(self) -> list[str]:
         return [m.name for m in self.masks]
+
+    def add_similarity_mask(self, name: str, point_xy=None,
+                            color_tolerance: float = 0.1,
+                            spatial_sigma: float = 0.0, points_xy=None,
+                            labels=None) -> None:
+        """Point-prompted selection by OKLab similarity to the colour at
+        ``point_xy`` (x, y) on the current FULL render (v1 re-applies edits
+        before predicting, raw_photo_forge.py:2409-2411), thresholded by
+        mask_range like any mask. Labelled prompts: ``points_xy`` [(x, y),
+        ...] with ``labels`` [1/0, ...] (ops/masking.combine_labeled_logits)."""
+        from ..ops.masking import similarity_mask, similarity_mask_points
+
+        pts, labs = _normalize_points(point_xy, points_xy, labels)
+        base = srgb_to_linear(self.apply(FULL, cropped=False))
+        sigma = spatial_sigma if spatial_sigma > 0 else 1.0
+        if len(pts) == 1 and labs[0]:
+            x, y = pts[0]
+            logits = similarity_mask(base, (y, x), color_tolerance, sigma,
+                                     spatial_falloff=spatial_sigma > 0)
+        else:
+            logits = similarity_mask_points(
+                base, [(y, x) for x, y in pts], labs, color_tolerance, sigma,
+                spatial_falloff=spatial_sigma > 0)
+        h, w = self.shape
+        self.add_mask(name, logits[:h, :w].cpu().numpy())
+
+    def add_smart_mask(self, name: str, point_xy=None, tolerance: float = 0.15,
+                       edge_weight: float = 12.0, points_xy=None,
+                       labels=None) -> None:
+        """Point-prompted object selection: the edge-aware geodesic flood
+        (ops/masking.smart_select_mask) over the current MID render,
+        upsampled to FULL (v1's resize-to-levels flow for SAM masks,
+        raw_photo_forge.py:2427-2474). It respects connectivity and stops
+        at contrast boundaries. Labelled prompts grow the flood from every
+        include seed; exclude seeds run a competing flood
+        (ops/masking.smart_select_points)."""
+        from ..ops.masking import smart_select_mask, smart_select_points
+
+        pts, labs = _normalize_points(point_xy, points_xy, labels)
+        mh, mw = self._extents[MID]
+        h, w = self.shape
+
+        def to_level(x, y):  # full-res prompt -> MID coordinates (y, x)
+            return (min(mh - 1, max(0, int(y * mh / h))),
+                    min(mw - 1, max(0, int(x * mw / w))))
+
+        base = srgb_to_linear(self.apply(MID, cropped=False))
+        inc = [to_level(x, y) for (x, y), lab in zip(pts, labs) if lab]
+        exc = [to_level(x, y) for (x, y), lab in zip(pts, labs) if not lab]
+        if not inc:
+            raise ValueError("smart selection needs at least one include point")
+        if len(inc) == 1 and not exc:
+            logits = smart_select_mask(base, inc[0], tolerance=tolerance,
+                                       edge_weight=edge_weight)
+        else:
+            logits = smart_select_points(base, inc, exc or None,
+                                         tolerance=tolerance,
+                                         edge_weight=edge_weight)
+        if (mh, mw) != (h, w):
+            logits = resize_bilinear(logits[None], h, w)[0]
+        self.add_mask(name, logits.cpu().numpy())
+
+    def add_model_mask(self, name: str, point_xy=None, segmenter=None,
+                       points_xy=None, labels=None) -> None:
+        """Point-prompted AI mask through an external segmenter adapter
+        (v1's SAM2 workflow, editor.py:1120-1159): the model sees the
+        current FULL render as u8, its logits are resampled to full
+        resolution and thresholded by mask_range. ``segmenter`` is an
+        adapter or a spec for engine/segmenter.make_segmenter; labelled
+        prompts pass through to it."""
+        from ..utils.transfer import fetch_u8_hwc
+        from .segmenter import make_segmenter, segment_to_mask
+
+        seg = (segmenter if hasattr(segmenter, "segment")
+               else make_segmenter(segmenter))
+        pts, labs = _normalize_points(point_xy, points_xy, labels)
+        rgb_u8 = fetch_u8_hwc(self.apply(FULL, cropped=False))
+        if len(pts) == 1 and labs[0]:
+            logits = segment_to_mask(seg, rgb_u8, pts[0], device=self.device)
+        else:
+            logits = segment_to_mask(seg, rgb_u8, pts, labels=labs,
+                                     device=self.device)
+        self.add_mask(name, logits)
 
     # -- lens profile correction (load-time, python-legacy editor.py:425-711)
     def apply_lens_profile(self, profile) -> None:
@@ -572,6 +683,24 @@ class PhotoEditor:
         return crop_slice_for_grid(self.crop_rect, self.shape,
                                    self._extents[level])
 
+    def mask_overlay_srgb(self, name: str, level: str = MID,
+                          cropped: bool = True) -> torch.Tensor:
+        """The current render with the named mask tinted red (python-legacy
+        get_mask_image, editor.py:1173-1189); ``cropped=False`` gives the
+        full frame."""
+        from ..ops.masking import mask_overlay
+
+        idx = next((i for i, m in enumerate(self.masks) if m.name == name), None)
+        if idx is None:
+            raise MaskNotFound(f"the specified mask '{name}' does not exist")
+        srgb = self.apply(level, cropped=cropped)
+        h, w = self._extents[level]
+        mask = self._masks_at(level)[idx][:h, :w].to(torch.float32)
+        cs = self._crop_slice(level) if cropped else None
+        if cs is not None:
+            mask = mask[cs[0]:cs[1], cs[2]:cs[3]]
+        return mask_overlay(srgb, mask)
+
     def get_srgb_f32(self, level: str = FULL) -> np.ndarray:
         """HWC float32 sRGB render (the wasm get_rgb_f32 surface)."""
         from ..utils.transfer import fetch_np
@@ -586,8 +715,6 @@ class PhotoEditor:
         (PPM is inherently 16-bit). The bytes exist before the file opens,
         so a failure never truncates an existing file."""
         fmt = image_io.format_for_path(path)
-        if fmt == "DNG":
-            raise NotPortedError("HDR DNG export", "HDR DNG export")
         if bit_depth == 16:
             if fmt == "PNG":
                 fmt = "PNG16"
@@ -622,6 +749,26 @@ class PhotoEditor:
             self.apply(FULL, cropped=False), fmt, quality=quality,
             exif_bytes=self.export_exif_bytes(),
             host_crop=self._crop_slice(FULL))
+
+    def hdr_dng_render(self):
+        """The device half of the HDR DNG export: the FULL scene-linear
+        render (sRGB OETF undone, full frame) on the device, the crop slice
+        to apply on the host after the fetch, and an EXIF snapshot."""
+        return (srgb_to_linear(self.apply(FULL, cropped=False)),
+                self._crop_slice(FULL), dict(self.exif))
+
+    def hdr_dng_bytes(self, dtype=np.float16) -> bytes:
+        """The edited image as a floating-point LinearRaw DNG (deflate, TN3
+        predictor): the linear render, so reopening it as a RAW and
+        developing with identity WB/matrix reproduces this session's
+        render."""
+        linear, crop, exif = self.hdr_dng_render()
+        return hdr_dng_encode(linear, exif, dtype=dtype, host_crop=crop)
+
+    def save_hdr_dng(self, path: str, dtype=np.float16) -> None:
+        data = self.hdr_dng_bytes(dtype)  # render before touching the file
+        with open(path, "wb") as f:
+            f.write(data)
 
     # -- presets / session checkpointing ------------------------------------
     def preset_json(self) -> str:
@@ -673,3 +820,25 @@ class PhotoEditor:
     def load_preset(self, path: str) -> None:
         with open(path) as f:
             self.load_preset_json(f.read())
+
+
+def hdr_dng_encode(linear, exif: dict, dtype=np.float16, on_stage=None,
+                   host_crop=None) -> bytes:
+    """The host half of the HDR DNG export: fetch the scene-linear render
+    and encode it as a float LinearRaw DNG (deflate, TN3 predictor).
+    ``on_stage(name)`` is called entering the 'fetch' and 'encode' stages;
+    ``host_crop`` (r0, r1, c0, c1) is applied after the fetch."""
+    from ..io.dng import RawImage, write_dng
+    from ..utils.transfer import fetch_np
+
+    if on_stage:
+        on_stage("fetch")
+    hwc = fetch_np(linear).transpose(1, 2, 0).astype(dtype)
+    if host_crop is not None:
+        r0, r1, c0, c1 = host_crop
+        hwc = np.ascontiguousarray(hwc[r0:r1, c0:c1])
+    if on_stage:
+        on_stage("encode")
+    raw = RawImage(mosaic=hwc, pattern="RGB", black_level=0.0, white_level=1.0,
+                   wb_gains=(1.0, 1.0, 1.0), xyz_to_cam=None, exif=dict(exif))
+    return write_dng(raw, compression=8)

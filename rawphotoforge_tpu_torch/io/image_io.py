@@ -58,6 +58,44 @@ def format_for_path(path: str) -> str:
     return SUPPORTED_EXTENSIONS[ext]
 
 
+def format_for_bytes(data: bytes) -> str:
+    """Best-effort format from container magic, for data without a file
+    name: TIFF-structured and vendor RAW containers route to the RAW walker
+    ("DNG"), a 16-bit P6 PPM to "PPM16" (only when its maxval token is
+    65535; '#' ends a token and runs to the end of the line, as in
+    ``_parse_ppm16``), everything else to "JPEG", whose decode (Pillow)
+    identifies common bitmaps by magic itself."""
+    head = data[:16]
+    if (head[:4] in (b"II*\x00", b"MM\x00*", b"IIU\x00")
+            or head[:8] == b"FUJIFILM"          # RAF
+            or head[4:8] == b"ftyp"             # Canon CR3 (ISO-BMFF)
+            or head[:4] == b"FOVb"):            # Sigma X3F
+        return "DNG"
+    if head[:2] == b"P6":
+        toks: list[bytes] = []
+        i, n, cur = 2, min(len(data), 4096), b""
+        while i < n and len(toks) < 3:
+            ch = data[i:i + 1]
+            if ch == b"#":
+                if cur:
+                    toks.append(cur)
+                    cur = b""
+                while i < n and data[i:i + 1] not in (b"\n", b"\r"):
+                    i += 1
+            elif ch.isspace():
+                if cur:
+                    toks.append(cur)
+                    cur = b""
+            else:
+                cur += ch
+            i += 1
+        if cur and len(toks) < 3:
+            toks.append(cur)
+        if len(toks) == 3 and toks[2] == b"65535":
+            return "PPM16"
+    return "JPEG"
+
+
 def _parse_ppm16(data: bytes) -> np.ndarray:
     """16-bit big-endian P6 PPM -> u16 HWC samples (image.ts:146-195).
 
@@ -405,6 +443,25 @@ def decode_image_host(data: bytes, fmt: str):
                        scale, fmt != "TIFF")
 
 
+def decode_image(data: bytes, fmt: str, device=None):
+    """Decode container bytes -> (linear planes f32 [3, H, W] on ``device``,
+    exif dict): EXIF orientation applied, sRGB formats linearized (TIFF
+    passed through, image.rs:430-440), RAW containers developed."""
+    from .._device import resolve_device
+
+    dev = resolve_device(device)
+    hd = decode_image_host(data, fmt)
+    return hd.upload(dev), hd.exif
+
+
+def read_image(path: str, device=None):
+    """Load a file -> (linear planes f32 [3, H, W] on ``device``, exif)."""
+    fmt = format_for_path(path)
+    with open(path, "rb") as f:
+        data = f.read()
+    return decode_image(data, fmt, device=device)
+
+
 def normalize_exif_blob(exif_bytes: bytes) -> bytes:
     """Reset the Orientation tag to 1 in a raw EXIF blob (pixels are
     rotated upright at decode); blobs already at 1 pass through untouched,
@@ -496,8 +553,9 @@ def encode_image(planes: torch.Tensor, fmt: str, quality: int = 95,
 
     if fmt == "DNG":
         raise ImageIOError(
-            "HDR DNG export is not ported yet (ROADMAP.md, still to port: "
-            "HDR DNG export)")
+            "cannot encode a developed image as DNG; use io.dng.write_dng "
+            "for CFA mosaics (or the editor's save_hdr_dng for the "
+            "scene-linear render)")
     if fmt == "PNG16":
         return encode_png16(hcrop(fetch_u16_hwc(planes)), exif_bytes=exif_bytes)
     if fmt == "PPM16":
@@ -526,3 +584,19 @@ def encode_image(planes: torch.Tensor, fmt: str, quality: int = 95,
         save_kwargs["exif"] = normalize_exif_blob(exif_bytes)
     img.save(buf, format=fmt, **save_kwargs)
     return buf.getvalue()
+
+
+def write_image(path: str, srgb_planes: torch.Tensor, quality: int = 95) -> None:
+    """Write sRGB-encoded planes [3, H, W] to a file by extension."""
+    fmt = format_for_path(path)
+    data = encode_image(srgb_planes, fmt, quality=quality)
+    with open(path, "wb") as f:
+        f.write(data)
+
+
+def linear_planes_to_srgb_u8(planes: torch.Tensor) -> np.ndarray:
+    """Linear [3, H, W] -> sRGB u8 HWC on the host (thumbnails, mask UIs)."""
+    from ..core.color import linear_to_srgb
+    from ..utils.transfer import fetch_u8_hwc
+
+    return fetch_u8_hwc(linear_to_srgb(torch.clamp(planes, 0.0, 1.0)))

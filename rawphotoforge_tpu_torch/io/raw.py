@@ -414,6 +414,17 @@ def develop_raw_image(raw: RawImage, method: str = "malvar", device=None):
     return orient_exif(planes, raw.orientation), dict(raw.exif)
 
 
+def read_raw(path_or_bytes, method: str = "malvar", device=None):
+    """Load a RAW file (path or bytes) -> (linear planes on ``device``,
+    exif)."""
+    if isinstance(path_or_bytes, (bytes, bytearray)):
+        data = bytes(path_or_bytes)
+    else:
+        with open(path_or_bytes, "rb") as f:
+            data = f.read()
+    return develop_raw_image(parse_raw(data), method=method, device=device)
+
+
 class RawHostDecoded:
     """The host half of a RAW decode (image_io.HostDecoded's contract):
     metadata and the final true shape, knowable without developing, and

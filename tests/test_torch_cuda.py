@@ -17,7 +17,7 @@ from rawphotoforge_tpu_torch.core.params import (
 from rawphotoforge_tpu_torch.engine.editor import FULL, LOW, PhotoEditor
 from rawphotoforge_tpu_torch.kernels import fused
 
-from chip_smoke import BAYER_EDGE_HW
+from chip_smoke import BAYER_EDGE_HW, GEODESIC_HW, same_bits, twin_flood
 
 pytestmark = pytest.mark.cuda
 
@@ -425,3 +425,76 @@ def test_jpeg_wires_byte_identical_on_the_card(dev, h, w, true_shape):
     th, tw = true_shape or (h, w)
     with Image.open(io.BytesIO(files[0])) as im:
         assert im.size == (tw, th)
+
+
+# -- the geodesic sweep kernel (csrc/geodesic.cu) --------------------------------
+
+def _geodesic_inputs(dev, h, w, seed=0, nan=False):
+    from rawphotoforge_tpu_torch.ops import masking
+
+    rng = np.random.default_rng(seed)
+    planes = rng.random((3, h, w), dtype=np.float32) * 0.8 + 0.1
+    if nan:
+        planes[0, h // 2, w // 2] = np.nan
+    return masking.step_costs(torch.from_numpy(planes).to(dev), 12.0, 0.002)
+
+
+@pytest.mark.parametrize("h,w", GEODESIC_HW)
+@pytest.mark.parametrize("direction", ["down", "up", "right", "left"])
+def test_geodesic_sweep_bit_identical_to_twin(dev, h, w, direction):
+    from rawphotoforge_tpu_torch.kernels import geodesic
+
+    gv, gh = _geodesic_inputs(dev, h, w, seed=h * w)
+    rng = np.random.default_rng(h + w)
+    d0 = torch.from_numpy(np.where(rng.random((h, w)) < 0.05, 0.0,
+                                   rng.random((h, w)) * 50).astype(np.float32)).to(dev)
+    ours, ref = d0.clone(), d0.clone()
+    before = geodesic.KERNEL_LAUNCHES["geodesic_sweep_kernel"]
+    geodesic.sweep(ours, gv, gh, direction)
+    torch.cuda.synchronize()
+    assert geodesic.KERNEL_LAUNCHES["geodesic_sweep_kernel"] == before + 1
+    geodesic.sweep_ref(ref, gv, gh, direction)
+    same_bits(ours, ref, f"{h}x{w} {direction} sweep")
+
+
+@pytest.mark.parametrize("h,w,seeds,nan", [
+    (37, 50, [(0, 0)], False), (61, 97, [(60, 96)], True),
+    (128, 128, [(0, 127), (127, 0), (64, 64)], False), (1, 300, [(0, 299)], False),
+    (300, 1, [(150, 0)], False), (853, 1280, [(400, 600)], False)])
+def test_geodesic_flood_bit_identical_to_twin(dev, h, w, seeds, nan):
+    from rawphotoforge_tpu_torch.kernels import geodesic
+    from rawphotoforge_tpu_torch.ops.masking import BIG
+
+    gv, gh = _geodesic_inputs(dev, h, w, nan=nan)
+    d0 = torch.full((h, w), BIG, device=dev)
+    for y, x in seeds:
+        d0[y, x] = 0.0
+    ours = geodesic.flood(d0.clone(), gv, gh)
+    torch.cuda.synchronize()
+    same_bits(ours, twin_flood(d0.clone(), gv, gh), f"{h}x{w} flood from {seeds}")
+    assert bool(torch.isnan(ours).any()) == nan
+
+
+def test_geodesic_cuda_tensors_never_reach_the_twin(dev, monkeypatch):
+    from rawphotoforge_tpu_torch.engine.editor import PhotoEditor as Ed
+    from rawphotoforge_tpu_torch.kernels import geodesic
+
+    def refuse(*a, **k):
+        raise AssertionError("the twin ran for a CUDA tensor")
+
+    monkeypatch.setattr(geodesic, "sweep_ref", refuse)
+    img = np.full((96, 160, 3), 0.4, np.float32)
+    img[:, 80:] = (0.7, 0.2, 0.1)
+    ed = Ed.from_rgb_f32(img, device=dev, mid_long_edge=80, low_long_edge=40)
+    before = geodesic.KERNEL_LAUNCHES["geodesic_sweep_kernel"]
+    ed.add_smart_mask("s", (20, 40), tolerance=0.3)
+    ed.add_smart_mask("t", points_xy=[(20, 40), (140, 40)], labels=[1, 0])
+    assert geodesic.KERNEL_LAUNCHES["geodesic_sweep_kernel"] == before + 16 + 32
+    cpu = Ed.from_rgb_f32(img, device="cpu", mid_long_edge=80, low_long_edge=40)
+    monkeypatch.undo()
+    cpu.add_smart_mask("s", (20, 40), tolerance=0.3)
+    np.testing.assert_allclose(ed._find("s").logits, cpu._find("s").logits,
+                               rtol=0, atol=1e-5)
+    with pytest.raises(ValueError, match="contiguous"):
+        geodesic.sweep(torch.zeros((8, 6), device=dev).t(), torch.zeros((5, 8), device=dev),
+                       torch.zeros((6, 7), device=dev), "down")

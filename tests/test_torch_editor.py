@@ -216,7 +216,9 @@ def test_save_and_reopen(rng, tmp_path):
     assert lin.shape == (40, 64, 3) and np.isfinite(lin).all()
     with pytest.raises(image_io.ImageIOError):
         ed.save(str(tmp_path / "o.jpg"), bit_depth=16)
-    with pytest.raises(PhotoEditorError, match="ROADMAP"):
+    # DNG is no display-encode target (the HDR export is save_hdr_dng,
+    # test_torch_hdr_dng.py), as in the JAX editor.
+    with pytest.raises(PhotoEditorError, match="cannot encode a developed image"):
         ed.save(str(tmp_path / "o.dng"))
 
 

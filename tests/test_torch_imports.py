@@ -23,7 +23,7 @@ for name in names:
     importlib.import_module(name)
 print(json.dumps({"imported": names, "loaded": sorted(
     k for k in sys.modules
-    if k.split(".")[0] in ("jax", "jaxlib", "rawphotoforge_tpu", "PIL"))}))
+    if k.split(".")[0] in ("jax", "jaxlib", "rawphotoforge_tpu", "PIL", "scipy"))}))
 """
 
 # The vendor containers, the decode gate and lens correction (slice 5), the
@@ -32,6 +32,9 @@ print(json.dumps({"imported": names, "loaded": sorted(
 SLICE_5 = ["io.vendor_packed", "io.vendor_preview", "io.cr2", "io.vendor_raw",
            "engine.instant", "ops.lenscorr", "io.lensdb"]
 SLICE_6 = ["io.jpegbits", "io.jpegenc", "kernels.jpeg_wire"]
+# Masks, the segmenter adapters, the geodesic sweep kernel and the v1 tone
+# LUT (slice 7); scipy and Pillow load only inside their functions.
+SLICE_7 = ["ops.masking", "engine.segmenter", "kernels.geodesic", "core.tonelut"]
 
 
 def _clean_env():
@@ -46,7 +49,7 @@ def test_importing_every_port_module_loads_no_jax_and_no_pillow():
     assert out.returncode == 0, out.stderr
     probe = json.loads(out.stdout.strip().splitlines()[-1])
     assert probe["loaded"] == []
-    assert {f"rawphotoforge_tpu_torch.{m}" for m in SLICE_5 + SLICE_6} <= set(
+    assert {f"rawphotoforge_tpu_torch.{m}" for m in SLICE_5 + SLICE_6 + SLICE_7} <= set(
         probe["imported"])
 
 

@@ -1,10 +1,11 @@
 """The port's RAW host I/O against the JAX package's on the CPU: DNG bytes
 written by both writers are equal, both readers return the same fields
 for the same file, the lossless-JPEG codec agrees, and the device
-develops (exact extent and bucket-stable padded) agree for Bayer,
-X-Trans, DefaultCrop and orientation 6. Plus the editor's RAW open and
-its embedded-preview fallback (the vendor containers and OpcodeList3 are
-in test_torch_vendor.py and test_torch_lenscorr.py)."""
+develops (exact extent and bucket-stable padded) agree for Bayer and
+X-Trans at EXIF orientations 1-8, each with and without a DefaultCrop.
+Plus the editor's RAW open and its embedded-preview fallback (the vendor
+containers and OpcodeList3 are in test_torch_vendor.py and
+test_torch_lenscorr.py)."""
 
 import dataclasses
 
@@ -89,13 +90,22 @@ def _jax_padded(raw):
     return np.asarray(jraw.develop_raw_image_padded(raw))
 
 
-@pytest.mark.parametrize("pattern,fields", [
-    ("RGGB", {}),
-    ("GRBG", {"orientation": 6}),
-    ("XTRANS", {}),
-    ("XTRANS", {"orientation": 6}),
-    ("RGGB", {"default_crop": (3, 5, 70, 41)}),
-])
+CROP = (3, 5, 70, 41)
+# The first five cases keep their ids from before the orientations were
+# widened; then EXIF orientations 1-8, each with and without a DefaultCrop,
+# for a Bayer pattern (cycling through the four) and for X-Trans.
+_FIRST = [("RGGB", {}), ("GRBG", {"orientation": 6}), ("XTRANS", {}),
+          ("XTRANS", {"orientation": 6}), ("RGGB", {"default_crop": CROP})]
+_WIDE = [(pattern, dict({"orientation": o}, **({"default_crop": CROP} if crop else {})))
+         for o in range(1, 9) for crop in (False, True)
+         for pattern in (("RGGB", "GBRG", "GRBG", "BGGR")[o % 4], "XTRANS")]
+DEVELOP_CASES = [pytest.param(p, f, id=f"{p}-fields{i}") for i, (p, f) in enumerate(_FIRST)] + [
+    pytest.param(p, f, id=f"{p}-o{f['orientation']}" + ("-crop" if "default_crop" in f else ""))
+    for p, f in _WIDE
+    if (p, f) not in _FIRST and not (f == {"orientation": 1} and (p, {}) in _FIRST)]
+
+
+@pytest.mark.parametrize("pattern,fields", DEVELOP_CASES)
 def test_develop_raw_image_matches(rng, pattern, fields):
     j, t = _raws(rng, pattern, **fields)
     ours, exif = traw.develop_raw_image(t, device="cpu")
