@@ -85,6 +85,22 @@ Phases (any failure raises, and the script exits non-zero):
     save_hdr_dng of it reopened by read_raw (within 2e-3, f16), `cli
     convert` of phase 6's DNG (ljpeg and deflate, the mosaic bit for bit),
     `cli info --verify-decode` of phase 8's matching ARW2 and `cli devices`.
+ 11. the interactive server (app/server.serve, what `cli serve` runs) on the
+    card, driven over HTTP from this process with phase 6's 24 MP RGGB
+    lossless-JPEG DNG: the instant startup (serve(None, initial_file=...)),
+    an open for timings, then a gated open: POST /open returns before the
+    device phase ends, the era /preview carries X-RPF-Instant, the era MID
+    preview after an /edit equals encode_instant_jpeg(hostdev.render_u8_hwc)
+    of the same state byte for byte; at the swap the era edit is replayed
+    and the MID preview equals a direct editor's (PhotoEditor.from_bytes of
+    the DNG with the same state) byte for byte; 20 drag ticks each with the
+    host drag on (X-RPF-HostDrag, no host-drag failure, the host frame
+    within tests/test_hostdev.py's u8 rule of the card's LOW render) and
+    off; 10 MID releases; a smart mask (16 geodesic launches); an async JPEG
+    export byte for byte the direct editor's save_bytes("JPEG") (the three
+    JPEG kernels launched); no twin call. Prints the open timings, the era
+    LOW tick, the drag ticks' p50/p95 with the X-RPF-Drag-Us split, the MID
+    release p50, the smart mask, the export and the launch counts.
 
 Two other modes print only measurements:
 
@@ -2009,6 +2025,315 @@ def phase_masks_and_exports(dev, card, log, dng_path, arw_path):
     return launches
 
 
+# -- the interactive server (phase 11) -----------------------------------------
+
+# The era's edit, then the drag state (no sharpening or distortion: the host
+# drag unsharps the true extent, the card the bucket-padded grid) and the
+# regional edit on the smart mask.
+SERVER_EDIT = {"exposure": 0.6, "contrast": 20, "shadow": 15, "wb_temperature": 15,
+               "vignette": 25,
+               "curve_brightness": [[0, 0], [20000, 26000], [45000, 47000], [65535, 65535]]}
+DRAG_TICKS = 20
+
+
+def _http(base, path, body=None):
+    """(ms, status, headers, bytes) of one request to the server."""
+    import urllib.request
+
+    data = None if body is None else json.dumps(body).encode()
+    req = urllib.request.Request(base + path, data=data,
+                                 method="GET" if data is None else "POST")
+    t0 = time.perf_counter()
+    with urllib.request.urlopen(req, timeout=300) as r:
+        out = r.read()
+        return (time.perf_counter() - t0) * 1e3, r.status, dict(r.headers), out
+
+
+def _pct(xs, q):
+    return float(np.percentile(np.asarray(xs, dtype=np.float64), q))
+
+
+def phase_server(dev, card, log, dng_path):
+    """Phase 11: the interactive server on the card (app/server.serve, the
+    entry point of `cli serve`), driven over HTTP in this process with
+    phase 6's 24 MP RGGB lossless-JPEG DNG: the instant startup, a gated
+    open (the era: the instant preview, an era edit rendered by
+    engine/hostdev and held byte for byte against the same render made
+    here), the swap (the era edit replayed; the MID preview byte for byte a
+    direct editor's), drag ticks with the host drag on and off, MID
+    releases, a smart mask (16 geodesic launches a flood) and an async JPEG
+    export (byte for byte the direct editor's save_bytes). An ungated open
+    gives the open timings. Every launch count is zeroed just before and
+    read just after, and no twin may run. Returns the path's launches by
+    kernel."""
+    import threading
+    import urllib.request
+
+    import torch
+
+    from rawphotoforge_tpu_torch.app import server as srv
+    from rawphotoforge_tpu_torch.engine import hostdev, instant
+    from rawphotoforge_tpu_torch.engine.editor import LOW, MID, PhotoEditor
+    from rawphotoforge_tpu_torch.engine.session import Settings
+    from rawphotoforge_tpu_torch.io import image_io, jpegbits, jpegenc, raw as rawio
+    from rawphotoforge_tpu_torch.kernels import fused, geodesic, jpeg_wire
+    from rawphotoforge_tpu_torch.utils.transfer import fetch_u8_hwc
+
+    with open(dng_path, "rb") as f:
+        data = f.read()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_server_")
+    twin_calls = {}
+    twins = [(fused, "develop_post_geo_fused_ref"), (geodesic, "sweep_ref"),
+             (jpegenc, "blockify"), (jpegbits, "prepack"),
+             (jpegbits, "scan_from_words"), (jpegbits, "concat_words")]
+    real = {(m, n): getattr(m, n) for m, n in twins}
+
+    def counted(name, fn):
+        def call(*a, **k):
+            twin_calls[name] = twin_calls.get(name, 0) + 1
+            return fn(*a, **k)
+        return call
+
+    gate = threading.Event()
+    gate.set()
+    real_from_host = PhotoEditor.from_host.__func__
+
+    def gated_from_host(cls, ho, **kw):
+        gate.wait(timeout=300)
+        return real_from_host(cls, ho, **kw)
+
+    def uncounted(fn):
+        """A reference computation: its launches are not the path's. The
+        server's own threads (the open, the warm-up) are joined first."""
+        for t in threading.enumerate():
+            if t.name in ("rpf-open", "rpf-prewarm"):
+                t.join(300)
+        saved = (fused.LAUNCHES, dict(geodesic.KERNEL_LAUNCHES),
+                 dict(jpeg_wire.KERNEL_LAUNCHES))
+        try:
+            return fn()
+        finally:
+            fused.LAUNCHES = saved[0]
+            geodesic.KERNEL_LAUNCHES.update(saved[1])
+            jpeg_wire.KERNEL_LAUNCHES.update(saved[2])
+
+    for (m, n), fn in real.items():
+        setattr(m, n, counted(n, fn))
+    PhotoEditor.from_host = classmethod(gated_from_host)
+    geodesic.KERNEL_LAUNCHES = dict.fromkeys(geodesic.KERNEL_LAUNCHES, 0)  # run starts
+    jpeg_wire.KERNEL_LAUNCHES = dict.fromkeys(jpeg_wire.KERNEL_LAUNCHES, 0)
+    fused.LAUNCHES = 0
+    t_phase = time.perf_counter()
+    times = {}
+    httpd = None
+    try:
+        t0 = time.perf_counter()
+        httpd = srv.serve(None, port=0, settings=Settings(),
+                          settings_path=os.path.join(tmp, "settings.json"),
+                          initial_file=(data, "p.dng"), device=dev)
+        app = httpd.app
+        threading.Thread(target=httpd.serve_forever, daemon=True).start()
+        base = f"http://127.0.0.1:{httpd.server_address[1]}"
+        times["serve() (startup host decode)"] = (time.perf_counter() - t0) * 1e3
+        check(app.device_ready.wait(300), "the startup open never became ready")
+        times["startup: serve() -> device ready"] = (time.perf_counter() - t0) * 1e3
+        check(app.device == dev, f"the server's device is {app.device}")
+
+        # An ungated open: the open timings, the host decode's stages apart.
+        clock = StageClock(((rawio, "parse_raw", "parse + LJPEG decode", None),
+                            (instant, "quick_linear_from_raw", "superpixel instant", None),
+                            (instant, "encode_instant_jpeg", "instant JPEG", None),
+                            (instant, "instant_histogram", "instant histogram", None)))
+        t0 = time.perf_counter()
+        req = urllib.request.Request(base + "/open?name=p.dng", data=data, method="POST")
+        with clock, urllib.request.urlopen(req, timeout=300) as r:
+            out = json.loads(r.read())
+        t_post = time.perf_counter()
+        ready_at_return = app.device_ready.is_set()
+        _, _, hdr, _ = _http(base, "/preview?level=mid")
+        t_first = time.perf_counter()
+        check(out.get("instant"), f"/open answered {out}")
+        check(app.device_ready.wait(300), "the open never became ready")
+        t_ready = time.perf_counter()
+        times["POST /open"] = (t_post - t0) * 1e3
+        times["open -> first instant preview"] = (t_first - t0) * 1e3
+        times["open -> device ready"] = (t_ready - t0) * 1e3
+        log(f"phase 11: POST /open's host stages, ms: {clock.line()}; the device phase "
+            f"(upload, demosaic, MID render, histogram) {(t_ready - t_post) * 1e3:.2f} "
+            f"after the POST returned [{card}]")
+        log(f"phase 11: ungated open: the device phase had "
+            f"{'ended' if ready_at_return else 'not ended'} when POST /open returned; "
+            f"the first preview was {'instant' if 'X-RPF-Instant' in hdr else 'a device render'}")
+
+        # The era, gated: deterministic checks.
+        gate.clear()
+        t0 = time.perf_counter()
+        req = urllib.request.Request(base + "/open?name=p.dng", data=data, method="POST")
+        with urllib.request.urlopen(req, timeout=300) as r:
+            out = json.loads(r.read())
+        check(out.get("instant") and not app.device_ready.is_set(),
+              "POST /open did not return before the device phase ended")
+        _, st, hdr, _ = _http(base, "/preview?level=mid")
+        check(st == 200 and hdr.get("X-RPF-Instant") == "1",
+              "an era /preview lacks X-RPF-Instant")
+        era_ticks = []
+        for i in range(5):  # the first builds the era's LOW planes
+            ms_edit, _, _, _ = _http(base, "/edit", dict(SERVER_EDIT, exposure=0.5 + 0.02 * i))
+            ms_low, _, hdr, _ = _http(base, "/preview?level=low")
+            check(hdr.get("X-RPF-Instant") == "1", "the era LOW tick is not instant")
+            era_ticks.append(ms_edit + ms_low)
+        ms_edit, _, _, _ = _http(base, "/edit", SERVER_EDIT)
+        times["era LOW tick (POST /edit + GET LOW), first"] = era_ticks[0]
+        times["era LOW tick, median of the next 4"] = _pct(era_ticks[1:], 50)
+        _, _, hdr, era_mid = _http(base, "/preview?level=mid")
+        ho = PhotoEditor.open_host(data, "DNG", mid_long_edge=Settings().ui_preview_size)
+        want = instant.encode_instant_jpeg(hostdev.render_u8_hwc(
+            ho.instant_linear, [srv.EditorApp._state_to_params(SERVER_EDIT)]))
+        check(era_mid == want, "the era preview differs from encode_instant_jpeg("
+              "hostdev.render_u8_hwc(...)) of the same state")
+        log(f"phase 11: era: POST /open returned before the device phase ended, "
+            f"/preview carries X-RPF-Instant, the era MID preview after /edit == "
+            f"encode_instant_jpeg(hostdev.render_u8_hwc) byte for byte ({len(want)} bytes)")
+        gate.set()
+        check(app.device_ready.wait(300), "the gated open never became ready")
+        _, _, _, params = _http(base, "/params")
+        params = json.loads(params)
+        check(params["exposure"] == SERVER_EDIT["exposure"]
+              and params["contrast"] == SERVER_EDIT["contrast"]
+              and params["vignette"] == SERVER_EDIT["vignette"],
+              f"the era edit was not replayed: {params}")
+
+        # The reference: a direct editor of the same DNG on the card.
+        ref = uncounted(lambda: PhotoEditor.from_bytes(data, "DNG", device=dev))
+        app.apply_state(SERVER_EDIT, editor=ref)
+        _, _, hdr, mid = _http(base, "/preview?level=mid")
+        check("X-RPF-Instant" not in hdr, "the MID preview after the swap is instant")
+        check(mid == uncounted(lambda: image_io.encode_image(
+            ref.apply(MID, cropped=False), "JPEG", quality=90)),
+              "the MID preview after the swap differs from the direct editor's")
+        log("phase 11: swap: the era edit replayed (/params); the MID preview == the "
+            "direct editor's encode_image(apply(MID)) byte for byte")
+
+        # Drag ticks: POST /edit + GET LOW, host drag on, then off.
+        drag = {}
+        splits = []
+        for host_drag in (True, False):
+            app.host_drag = host_drag
+            ticks = []
+            for i in range(DRAG_TICKS + 2):
+                body = dict(SERVER_EDIT, exposure=0.3 + 0.03 * i)
+                ms_edit, _, _, _ = _http(base, "/edit", body)
+                ms_low, st, hdr, _ = _http(base, "/preview?level=low")
+                check(st == 200 and (hdr.get("X-RPF-HostDrag") == "1") == host_drag,
+                      f"drag tick with host_drag={host_drag}: headers {hdr}")
+                if i >= 2:  # the first two warm the path
+                    ticks.append(ms_edit + ms_low)
+                    if host_drag:
+                        splits.append([int(v) for v in hdr["X-RPF-Drag-Us"].split(",")])
+            drag[host_drag] = ticks
+        app.host_drag = True
+        check(not app._hostdrag_warned, "a host-drag render failed (logged)")
+        host_u8 = app._hostdrag_frame()
+        card_u8 = uncounted(lambda: fetch_u8_hwc(app.editor.apply(LOW, cropped=False)))
+        check(host_u8.shape == card_u8.shape, f"host frame {host_u8.shape} vs card "
+              f"{card_u8.shape}")
+        d = np.abs(host_u8.astype(np.int16) - card_u8.astype(np.int16))
+        flips, big = float((d > 0).mean()), float((d > 16).mean())
+        # tests/test_hostdev.py's _assert_u8_close rule.
+        check(np.median(d) == 0 and flips < 0.05 and big < 1e-3,
+              f"host drag frame vs the card's LOW render: median {np.median(d)}, "
+              f"flips {flips:.3e}, >16 {big:.3e}")
+        log(f"phase 11: host drag frame {host_u8.shape[1]}x{host_u8.shape[0]} vs the "
+            f"card's LOW render of the same state: {100 * flips:.3f} % of samples "
+            f"differ, max {int(d.max())}, > 16 on {100 * big:.4f} % (the "
+            f"_assert_u8_close rule of tests/test_hostdev.py)")
+
+        # MID releases: POST /edit + GET MID.
+        releases = []
+        last = None
+        for i in range(10):
+            last = dict(SERVER_EDIT, exposure=0.4 + 0.02 * i, contrast=20 + i)
+            ms_edit, _, _, _ = _http(base, "/edit", last)
+            ms_mid, _, _, _ = _http(base, "/preview?level=mid")
+            releases.append(ms_edit + ms_mid)
+        _, _, _, hist = _http(base, "/histogram")
+        check(np.asarray(json.loads(hist)).shape == (4, 256), "histogram shape")
+
+        # A smart mask, then a regional edit on it.
+        h, w = app.editor.shape
+        smart = {"name": "smart", "point": [w // 3, h // 2], "smart": True,
+                 "tolerance": 0.5}
+        before = geodesic.KERNEL_LAUNCHES["geodesic_sweep_kernel"]
+        ms_smart, st, _, _ = _http(base, "/mask/add", smart)
+        flood = geodesic.KERNEL_LAUNCHES["geodesic_sweep_kernel"] - before
+        check(st == 200 and flood == 4 * FLOOD_SWEEPS,
+              f"/mask/add smart: {flood} geodesic launches (want {4 * FLOOD_SWEEPS})")
+        times["/mask/add smart (MID flood)"] = ms_smart
+        regional = {"_target": "smart", "exposure": -0.5, "contrast": 15}
+        _http(base, "/edit", regional)
+        app.apply_state(last, editor=ref)
+        uncounted(lambda: ref.add_smart_mask("smart", tuple(smart["point"]),
+                                             smart["tolerance"], 12.0))
+        app.apply_state(regional, editor=ref)
+        _, _, _, mid = _http(base, "/preview?level=mid")
+        check(mid == uncounted(lambda: image_io.encode_image(
+            ref.apply(MID, cropped=False), "JPEG", quality=90)),
+              "the MID preview with the smart mask differs from the direct editor's")
+
+        # The async JPEG export.
+        jpeg_before = dict(jpeg_wire.KERNEL_LAUNCHES)
+        t0 = time.perf_counter()
+        _, _, _, job = _http(base, "/export/start", {"fmt": "jpeg"})
+        job = json.loads(job)["job"]
+        while True:
+            _, _, _, stt = _http(base, f"/export/status?job={job}")
+            stt = json.loads(stt)
+            if stt["state"] != "running":
+                break
+            time.sleep(0.002)
+        _, st, _, exported = _http(base, f"/export/result?job={job}")
+        times["async JPEG export (start -> result)"] = (time.perf_counter() - t0) * 1e3
+        check(st == 200 and stt["state"] == "done", f"export job: {stt}")
+        grew = {k: jpeg_wire.KERNEL_LAUNCHES[k] - jpeg_before[k] for k in jpeg_before}
+        check(all(v > 0 for v in grew.values()), f"export JPEG kernel launches {grew}")
+        torch.cuda.synchronize()
+    finally:
+        PhotoEditor.from_host = classmethod(real_from_host)
+        for (m, n), fn in real.items():
+            setattr(m, n, fn)
+        gate.set()
+        if httpd is not None:
+            httpd.shutdown()
+            httpd.server_close()
+    launches = dict(geodesic.KERNEL_LAUNCHES, develop=fused.LAUNCHES,
+                    **jpeg_wire.KERNEL_LAUNCHES)  # run ends
+    t_phase = time.perf_counter() - t_phase
+    expect = ref.save_bytes("JPEG")
+    check(exported == expect, "the async export differs from the direct editor's "
+          "save_bytes('JPEG')")
+    check(launches["develop"] > 0, "the server path never launched the develop kernel")
+    check(not twin_calls, f"twins ran on the server path: {twin_calls}")
+    log(f"phase 11: smart mask: {flood} geodesic launches; async JPEG export "
+        f"{len(exported)} bytes == the direct editor's save_bytes('JPEG'); stages "
+        f"{stt['stages_ms']} ms; JPEG kernel launches {grew}")
+    log("phase 11: host wall, ms: " + ", ".join(f"{k} {v:.2f}" for k, v in times.items())
+        + f" [{card}]")
+    sp = np.asarray(splits, dtype=np.float64) / 1e3
+    log(f"phase 11: drag ticks (POST /edit + GET /preview?level=low, {DRAG_TICKS} each), "
+        f"ms: host drag p50 {_pct(drag[True], 50):.3f} p95 {_pct(drag[True], 95):.3f} "
+        f"(X-RPF-Drag-Us p50: render {_pct(sp[:, 0], 50):.3f}, encode "
+        f"{_pct(sp[:, 1], 50):.3f}, lock wait {_pct(sp[:, 2], 50):.3f}); device drag "
+        f"p50 {_pct(drag[False], 50):.3f} p95 {_pct(drag[False], 95):.3f} [{card}]")
+    log(f"phase 11: MID release (POST /edit + GET /preview?level=mid, 10), ms: p50 "
+        f"{_pct(releases, 50):.3f} p95 {_pct(releases, 95):.3f} [{card}]")
+    log(f"phase 11: server path in {t_phase:.2f} s; launches {launches}; twin calls "
+        f"{sum(twin_calls.values())}")
+    del ref
+    shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return launches
+
+
 def median_time(fn, windows=5, reps=20):
     """The median over ``windows`` CUDA-event windows of ``reps`` launches."""
     return sorted(time_events(fn, reps=reps) for _ in range(windows))[windows // 2]
@@ -2294,15 +2619,20 @@ def main() -> int:
     mask_launches = phase_masks_and_exports(
         dev, card, log, os.path.join(raw_dir, "bayer24.dng"),
         vendor_files["sony24.arw"][0])
+    server_launches = phase_server(dev, card, log, os.path.join(raw_dir, "bayer24.dng"))
     shutil.rmtree(raw_tmp, ignore_errors=True)
     shutil.rmtree(vendor_tmp, ignore_errors=True)
     # Each kernel's launches, summed over the main paths that drive it (each
     # counted from zero just before its path and read just after).
     log(f"launches by path: develop frame {launches}, RAW batch {batch_launches}, "
-        f"vendor path {vendor_launches}, masks and exports {mask_launches}")
-    launches += vendor_launches["develop"] + mask_launches["develop"]
+        f"vendor path {vendor_launches}, masks and exports {mask_launches}, "
+        f"server {server_launches}")
+    launches += (vendor_launches["develop"] + mask_launches["develop"]
+                 + server_launches["develop"])
     for k in batch_launches:
-        batch_launches[k] += vendor_launches[k] + mask_launches[k]
+        batch_launches[k] += (vendor_launches[k] + mask_launches[k]
+                              + server_launches.get(k, 0))
+    mask_launches["geodesic_sweep_kernel"] += server_launches["geodesic_sweep_kernel"]
     for k in ("bayer_kernel", "xtrans_kernel"):
         raw_worst[k.split("_")[0]] = max(raw_worst[k.split("_")[0]], vendor_worst[k])
 

@@ -1,6 +1,6 @@
 """Command-line tool of the port (the JAX package's ``app/cli.py``
-``info``, ``develop``, ``batch``, ``convert`` and ``devices`` subcommands,
-with the same flags).
+``info``, ``develop``, ``batch``, ``convert``, ``devices`` and ``serve``
+subcommands, with the same flags).
 
 Usage:
   python -m rawphotoforge_tpu_torch.app.cli info IMAGE [--preview OUT.jpg]
@@ -12,6 +12,9 @@ Usage:
   python -m rawphotoforge_tpu_torch.app.cli convert IN OUT.dng
       [--codec ljpeg|deflate] [--tile HxW] [--no-preview]
   python -m rawphotoforge_tpu_torch.app.cli devices
+  python -m rawphotoforge_tpu_torch.app.cli serve [IMAGE] [--port 8080]
+      [--segmenter CMD] [--no-host-drag] [--lens-correct] [--lens-db PATH]
+      [--device cuda|cpu]
 
 ``develop`` to a ``.dng`` writes the scene-linear render as a float
 LinearRaw DNG (``PhotoEditor.save_hdr_dng``). ``convert`` and ``devices``
@@ -27,7 +30,10 @@ scan, the host writes headers and stuffing); other inputs, and
 
 Edit flags mirror the UI sliders: exposure EV in [-6, 6]; all other
 sliders integer [-100, 100]; curves as comma-separated control points
-"x:y,x:y,...". The session runs on the card unless ``--device cpu``.
+"x:y,x:y,...". ``develop``, ``batch`` and ``serve`` run on the card the
+settings' ``device_index`` names (``engine/session``) unless ``--device``
+says otherwise (``--device cpu`` for the CPU); ``info`` on the card unless
+``--device cpu``.
 """
 
 from __future__ import annotations
@@ -98,8 +104,9 @@ def _add_edit_flags(p: argparse.ArgumentParser):
                         "profiles (only real lensfun DBs via --lens-db)")
     p.add_argument("--lens-db", type=str, action="append", default=None,
                    help="extra lensfun XML file/dir (repeatable)")
-    p.add_argument("--device", type=str, default="cuda",
-                   help="torch device of the session (default: the card)")
+    p.add_argument("--device", type=str, default=None,
+                   help="torch device of the session (default: the card the "
+                        "settings' device_index names)")
 
 
 def _set_edit_flags(target, args):
@@ -201,6 +208,17 @@ def cmd_info(args) -> int:
     return 0
 
 
+def _session_device(args):
+    """``--device`` when given; else the card the settings' device_index
+    names (the adapter picker, settings_window.gd:46-49), else the default
+    card. Without a card and without ``--device`` this raises."""
+    if args.device is not None:
+        return resolve_device(args.device)
+    from ..engine.session import Settings
+
+    return resolve_device(Settings.load().select_device())
+
+
 def cmd_develop(args) -> int:
     # A .dng output exports the scene-linear render (float LinearRaw DNG);
     # everything else is checked as a display format before rendering.
@@ -215,6 +233,7 @@ def cmd_develop(args) -> int:
             f"cannot develop to {os.path.splitext(args.output)[1]}; use .dng "
             "for scene-linear HDR or a display format "
             "(.jpg/.png/.webp/.tif/.ppm)")
+    args.device = _session_device(args)
     t0 = time.perf_counter()
     ed = PhotoEditor.open(args.input, use_kernel=not args.exact_path,
                           lens_correct=args.lens_correct,
@@ -434,6 +453,7 @@ def cmd_batch(args) -> int:
     if not paths:
         print(f"no images found in {args.input_dir}", file=sys.stderr)
         return 1
+    args.device = _session_device(args)
     os.makedirs(args.output_dir, exist_ok=True)
 
     # The one-pass RAW kernel has no lens-distortion (geometry) stage and
@@ -517,6 +537,20 @@ def cmd_devices(args) -> int:
     return 0
 
 
+def cmd_serve(args) -> int:
+    from .server import main as server_main
+
+    return server_main(
+        ([args.image] if args.image else [])
+        + ["--port", str(args.port)]
+        + (["--segmenter", args.segmenter] if args.segmenter else [])
+        + (["--no-host-drag"] if args.no_host_drag else [])
+        + (["--lens-correct", args.lens_correct_srv]
+           if args.lens_correct_srv else [])
+        + sum((["--lens-db", d] for d in (args.lens_db_srv or [])), [])
+        + (["--device", args.device] if args.device else []))
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="rawphotoforge-tpu-torch")
     sub = ap.add_subparsers(dest="cmd", required=True)
@@ -560,6 +594,27 @@ def main(argv=None) -> int:
     p_cv.set_defaults(fn=cmd_convert)
     p_ls = sub.add_parser("devices", help="list the CUDA devices")
     p_ls.set_defaults(fn=cmd_devices)
+    p_srv = sub.add_parser("serve", help="run the interactive preview server")
+    p_srv.add_argument("image", nargs="?")
+    p_srv.add_argument("--port", type=int, default=8080)
+    p_srv.add_argument("--segmenter", type=str, default=None,
+                       help="external AI-mask command: cmd image.png x y out.npy")
+    p_srv.add_argument("--no-host-drag", action="store_true",
+                       help="render LOW drag previews on the device instead "
+                            "of the host mirror")
+    p_srv.add_argument("--lens-correct", dest="lens_correct_srv",
+                       nargs="?", const="auto", default=None,
+                       choices=["auto", "calibrated-only"],
+                       help="auto-apply a lens profile matched from each "
+                            "opened file's EXIF ('calibrated-only' skips "
+                            "bundled approximate profiles)")
+    p_srv.add_argument("--lens-db", dest="lens_db_srv", action="append",
+                       default=None,
+                       help="extra lensfun XML file/dir (repeatable)")
+    p_srv.add_argument("--device", type=str, default=None,
+                       help="torch device of the sessions (default: the card "
+                            "the settings' device_index names)")
+    p_srv.set_defaults(fn=cmd_serve)
     args = ap.parse_args(argv)
     try:
         return args.fn(args)

@@ -22,8 +22,17 @@ prompt on the current render: colour similarity, the geodesic smart select
 (``ops/masking``; its flood runs on the sweep kernel, ``kernels/geodesic``)
 or an external segmenter (``engine/segmenter``); ``mask_overlay_srgb``
 shows one. ``save_hdr_dng`` exports the scene-linear render as a float
-LinearRaw DNG. Host instant previews and the sparse JPEG export are not
-ported yet (ROADMAP.md).
+LinearRaw DNG.
+
+Opening is split in two, as in the JAX package: ``open_host`` parses the
+container and makes the host instant preview (``engine/instant``) with no
+device work, and ``from_host`` uploads and builds the session on a given
+device (the server runs it on a background thread while the instant
+preview and ``engine/hostdev`` renders carry the UI). ``export_render`` /
+``export_encode`` split an export into the render (under the server's
+lock) and the fetch + encode (outside it); an uncropped JPEG renders on
+the bucket grid and goes through the JPEG device wires with its true
+extent.
 """
 
 from __future__ import annotations
@@ -131,6 +140,45 @@ class _Mask:
         self._levels: dict[str, torch.Tensor] = {}
 
 
+class HostOpen:
+    """Result of ``PhotoEditor.open_host``: the host-decoded image (with
+    its instant preview and metadata) plus the pending device phase. The
+    server answers /open from this and runs ``PhotoEditor.from_host`` on a
+    background thread."""
+
+    __slots__ = ("decoded", "preview_reason")
+
+    def __init__(self, decoded, preview_reason):
+        self.decoded = decoded             # io.image_io.HostDecoded
+        self.preview_reason = preview_reason
+
+    @property
+    def shape(self) -> tuple[int, int]:
+        return tuple(self.decoded.shape)
+
+    @property
+    def exif(self) -> dict:
+        return self.decoded.exif
+
+    @property
+    def instant(self):
+        """sRGB u8 HWC instant preview, or None."""
+        return self.decoded.instant
+
+    @property
+    def instant_linear(self):
+        """Small linear planes [3, h, w] f32 matching ``instant`` (the
+        engine/hostdev era-render source), recovered from the u8 instant
+        when the decode had no cheap linear form."""
+        lin = self.decoded.instant_linear
+        if lin is None and self.decoded.instant is not None:
+            from . import instant as _instant
+
+            lin = self.decoded.instant_linear = _instant.linear_from_srgb_u8(
+                self.decoded.instant)
+        return lin
+
+
 class PhotoEditor:
     """A single-image editing session with a 3-level preview pyramid."""
 
@@ -181,6 +229,10 @@ class PhotoEditor:
                 self._extents[level] = resize_long_edge_shape(h, w, edge)
             else:
                 self._extents[level] = (h, w)
+        # Host instant preview (sRGB u8 HWC, <= MID long edge) set by
+        # from_host when the decode had host pixels; None otherwise.
+        self.instant_srgb_u8: Optional[np.ndarray] = None
+        self._instant_jpeg = None  # (quality, bytes) cache
 
         # The main mask is all-ones by construction; no plane is stored.
         self.masks: list[_Mask] = [_Mask("main", None, EditParameters())]
@@ -246,22 +298,48 @@ class PhotoEditor:
         embedded-preview gate refuses) and the file carries a
         camera-rendered JPEG preview, the session opens on the preview,
         with ``opened_from_preview`` recording the decode error, unless
-        ``preview_fallback`` is False."""
-        dev_ = resolve_device(device)
-        reason = None
+        ``preview_fallback`` is False. ``open_host`` then ``from_host``."""
+        dev_ = resolve_device(device)  # the no-card error comes first
+        ho = cls.open_host(
+            data, fmt, preview_fallback=preview_fallback,
+            mid_long_edge=int(kwargs.get("mid_long_edge",
+                                         DEFAULT_MID_LONG_EDGE)))
+        return cls.from_host(ho, device=dev_, **kwargs)
+
+    @classmethod
+    def open_host(cls, data: bytes, fmt: str, preview_fallback: bool = True,
+                  mid_long_edge: int = DEFAULT_MID_LONG_EDGE) -> HostOpen:
+        """Host phase of ``from_bytes``: container parse, EXIF and the
+        instant preview — every file-content error surfaces here, with no
+        device work. Pass the result to ``from_host`` (possibly on another
+        thread) to run the device phase."""
+        preview_reason = None
         try:
-            hd = image_io.decode_image_host(data, fmt)
+            hd = image_io.decode_image_host(data, fmt,
+                                            instant_long_edge=mid_long_edge)
         except PhotoEditorError as e:
             from ..io.raw import decode_embedded_preview_host
 
-            hd = (decode_embedded_preview_host(data)
+            hd = (decode_embedded_preview_host(
+                      data, instant_long_edge=mid_long_edge)
                   if preview_fallback and fmt == "DNG" else None)
             if hd is None:
                 raise
-            reason = str(e)
+            preview_reason = str(e)
+        return HostOpen(hd, preview_reason)
+
+    @classmethod
+    def from_host(cls, ho: HostOpen, device=None, **kwargs) -> "PhotoEditor":
+        """Device phase: upload the bucket-padded planes to ``device`` (the
+        card unless the caller asks for the CPU) and build the session.
+        Safe to call off-thread: it touches no shared state and uses only
+        the device it is given."""
+        dev_ = resolve_device(device)
+        hd = ho.decoded
         ed = cls(hd.upload_padded(dev_, SHAPE_BUCKET), exif=hd.exif,
                  true_shape=hd.shape, device=dev_, **kwargs)
-        ed.opened_from_preview = reason
+        ed.opened_from_preview = ho.preview_reason
+        ed.instant_srgb_u8 = hd.instant
         return ed
 
     @classmethod
@@ -678,6 +756,41 @@ class PhotoEditor:
             out = out[:, cs[0]:cs[1], cs[2]:cs[3]]
         return out
 
+    # -- instant (host-side) previews ----------------------------------------
+    def instant_preview_jpeg(self, quality: int = 88) -> Optional[bytes]:
+        """JPEG bytes of the host instant preview, or None: no device work
+        (the approximate preview engine/instant made at decode time,
+        encoded on the host and cached). It shows the ORIGINAL image, not
+        pending edits."""
+        if self.instant_srgb_u8 is None:
+            return None
+        img = self._instant_cropped()
+        # The cache keys on quality too.
+        cached = self._instant_jpeg
+        if cached is not None and self.crop_rect is None \
+                and cached[0] == quality:
+            return cached[1]
+        from . import instant
+
+        jpeg = instant.encode_instant_jpeg(img, quality=quality)
+        if self.crop_rect is None:
+            self._instant_jpeg = (quality, jpeg)
+        return jpeg
+
+    def instant_histogram(self) -> Optional[np.ndarray]:
+        """[4, 256] histogram of the instant preview, or None (the host
+        stand-in for histogram())."""
+        if self.instant_srgb_u8 is None:
+            return None
+        from . import instant
+
+        return instant.instant_histogram(self._instant_cropped())
+
+    def _instant_cropped(self) -> np.ndarray:
+        img = self.instant_srgb_u8
+        cs = crop_slice_for_grid(self.crop_rect, self.shape, img.shape[:2])
+        return img if cs is None else img[cs[0]:cs[1], cs[2]:cs[3]]
+
     def _crop_slice(self, level: str):
         """Level-space (cy0, cy1, cx0, cx1) of the crop rect, or None."""
         return crop_slice_for_grid(self.crop_rect, self.shape,
@@ -742,13 +855,41 @@ class PhotoEditor:
                 f"profile '{self.applied_lens_profile}')")
         return image_io.build_exif_bytes(exif)
 
-    def save_bytes(self, fmt: str, quality: int = 95) -> bytes:
-        """Encode the FULL render (dense path: full-frame render, crop
-        applied on the host after the fetch)."""
+    def export_render(self, fmt: str):
+        """The device-render half of a (non-DNG) export: the render and the
+        route, consumed by ``export_encode``. An uncropped JPEG takes the
+        bucket-padded render with its true extent (the JPEG device wires
+        walk the padded block grid and emit only the true blocks);
+        everything else the full-frame render plus a host crop slice.
+        Renders are new tensors that later edits never write to, so
+        ``export_encode`` may run without the session lock."""
+        host_crop = self._crop_slice(FULL)
+        if fmt == "JPEG" and host_crop is None:
+            img, true_shape = self.apply_padded(FULL)
+            return ("sparse", img, true_shape, None)
+        return ("dense", self.apply(FULL, cropped=False), None, host_crop)
+
+    def export_encode(self, snapshot, fmt: str, quality: int = 95,
+                      exif_bytes: bytes | None = None,
+                      on_stage=None) -> bytes:
+        """Encode an ``export_render`` snapshot (fetch + host encode);
+        ``on_stage(name)`` is called entering each stage."""
+        kind, img, true_shape, host_crop = snapshot
+        if kind == "sparse":
+            from ..io import jpegenc
+
+            return jpegenc.encode_jpeg(
+                img, quality=quality, exif_bytes=exif_bytes,
+                on_stage=on_stage, true_shape=true_shape)
         return image_io.encode_image(
-            self.apply(FULL, cropped=False), fmt, quality=quality,
-            exif_bytes=self.export_exif_bytes(),
-            host_crop=self._crop_slice(FULL))
+            img, fmt, quality=quality, exif_bytes=exif_bytes,
+            on_stage=on_stage, host_crop=host_crop)
+
+    def save_bytes(self, fmt: str, quality: int = 95) -> bytes:
+        """The export's bytes: ``export_render`` then ``export_encode``."""
+        return self.export_encode(
+            self.export_render(fmt), fmt, quality=quality,
+            exif_bytes=self.export_exif_bytes())
 
     def hdr_dng_render(self):
         """The device half of the HDR DNG export: the FULL scene-linear

@@ -366,16 +366,26 @@ def _upload(chw: np.ndarray, scale, linearize: bool, device) -> torch.Tensor:
 class HostDecoded:
     """The host half of a decode: metadata, the true shape, and
     ``upload_padded(device, bucket)``, which edge-pads the pixels on the
-    host up to the bucket grid and moves them to the device."""
+    host up to the bucket grid and moves them to the device.
 
-    __slots__ = ("exif", "shape", "_chw", "_scale", "_linearize")
+    ``instant``: the sRGB u8 HWC instant preview (``engine/instant``), or
+    None; ``instant_linear``: small linear planes [3, h, w] f32 matching it
+    (the ``engine/hostdev`` era-render source), or None when the decode had
+    no cheap linear form (``HostOpen.instant_linear`` recovers them from
+    ``instant``)."""
 
-    def __init__(self, exif, chw, scale, linearize):
+    __slots__ = ("exif", "shape", "_chw", "_scale", "_linearize", "instant",
+                 "instant_linear")
+
+    def __init__(self, exif, chw, scale, linearize, instant=None,
+                 instant_linear=None):
         self.exif = exif
         self.shape = tuple(chw.shape[1:])
         self._chw = chw
         self._scale = scale
         self._linearize = linearize
+        self.instant = instant
+        self.instant_linear = instant_linear
 
     def upload(self, device) -> torch.Tensor:
         return _upload(self._chw, self._scale, self._linearize, device)
@@ -385,20 +395,31 @@ class HostDecoded:
                        self._linearize, device)
 
 
-def decode_image_host(data: bytes, fmt: str):
+def decode_image_host(data: bytes, fmt: str,
+                      instant_long_edge: int | None = None):
     """Container parse on the host: every file-content error surfaces here.
     PPM16 samples are linear already; PIL formats other than TIFF are
     linearized on the device after the upload (image.rs:430-440); RAW
     containers ("DNG") return ``io/raw.RawHostDecoded``, whose upload runs
-    the device develop."""
+    the device develop. With ``instant_long_edge``, the instant preview (at
+    most that long edge) is made from the host pixels the decode holds —
+    no device work (``engine/instant``)."""
     if fmt == "PPM16":
         u16 = _parse_ppm16(data)
-        return HostDecoded({}, np.ascontiguousarray(u16.transpose(2, 0, 1)),
-                           65535.0, False)
+        chw = np.ascontiguousarray(u16.transpose(2, 0, 1))
+        pv = lin = None
+        if instant_long_edge:
+            from ..engine import instant
+
+            lin = instant.quick_linear_from_linear_rgb(
+                chw.astype(np.float32) / 65535.0, instant_long_edge)
+            pv = instant._to_u8_hwc(lin)
+        return HostDecoded({}, chw, 65535.0, False, instant=pv,
+                           instant_linear=lin)
     if fmt == "DNG":
         from .raw import decode_raw_host
 
-        return decode_raw_host(data)
+        return decode_raw_host(data, instant_long_edge=instant_long_edge)
     from PIL import Image as PILImage, ImageOps
 
     from .exif import parse_exif
@@ -439,18 +460,53 @@ def decode_image_host(data: bytes, fmt: str):
         raise ImageIOError(f"failed to decode {fmt}: {e}") from e
     if arr.ndim == 2:
         arr = np.stack([arr] * 3, axis=-1)
+    linearize = fmt != "TIFF"
+    pv = lin = None
+    if instant_long_edge:
+        from ..engine import instant
+
+        if scale == 255.0:
+            # sRGB u8 source: the linear era-render planes are recovered
+            # from the u8 instant on demand (lossless round trip).
+            pv = instant.quick_from_srgb_u8(arr, instant_long_edge)
+        else:
+            hostf = arr.astype(np.float32)
+            if scale is not None:
+                hostf /= np.float32(scale)
+            planes_h = hostf.transpose(2, 0, 1)
+            if linearize:
+                # Encoded-space resize, like quick_from_srgb_u8 (a stand-in
+                # image; sub-quantization difference at preview scale).
+                small = instant._fit_long_edge(planes_h, instant_long_edge)
+                pv = np.ascontiguousarray(
+                    np.clip(small * 255.0 + 0.5, 0.0, 255.0)
+                    .astype(np.uint8).transpose(1, 2, 0))
+            else:
+                lin = instant.quick_linear_from_linear_rgb(
+                    planes_h, instant_long_edge)
+                pv = instant._to_u8_hwc(lin)
     return HostDecoded(exif, np.ascontiguousarray(arr.transpose(2, 0, 1)),
-                       scale, fmt != "TIFF")
+                       scale, linearize, instant=pv, instant_linear=lin)
 
 
-def decode_image(data: bytes, fmt: str, device=None):
+def decode_image(data: bytes, fmt: str, device=None,
+                 instant_out: dict | None = None):
     """Decode container bytes -> (linear planes f32 [3, H, W] on ``device``,
     exif dict): EXIF orientation applied, sRGB formats linearized (TIFF
-    passed through, image.rs:430-440), RAW containers developed."""
+    passed through, image.rs:430-440), RAW containers developed.
+
+    ``instant_out``: optional dict; when given, the host instant preview
+    (``"srgb_u8_hwc"``, at most ``instant_out.get("long_edge", 1280)`` px)
+    is stashed from the host data the decode holds, when it has one."""
     from .._device import resolve_device
 
     dev = resolve_device(device)
-    hd = decode_image_host(data, fmt)
+    edge = None
+    if instant_out is not None:
+        edge = int(instant_out.get("long_edge", 1280))
+    hd = decode_image_host(data, fmt, instant_long_edge=edge)
+    if instant_out is not None and hd.instant is not None:
+        instant_out["srgb_u8_hwc"] = hd.instant
     return hd.upload(dev), hd.exif
 
 
@@ -537,13 +593,18 @@ def build_exif_bytes(exif: dict | None) -> bytes | None:
 
 
 def encode_image(planes: torch.Tensor, fmt: str, quality: int = 95,
-                 exif_bytes=None, host_crop=None) -> bytes:
+                 exif_bytes=None, host_crop=None, on_stage=None) -> bytes:
     """sRGB-encoded f32 [3,H,W] in [0,1] -> container bytes. A JPEG of at
     least ``jpegenc.SPARSE_MIN_PIXELS`` goes through the JPEG device wires
     (io/jpegenc.encode_jpeg); otherwise quantization runs on the planes'
     device, so the copy to the host carries 1 or 2 bytes per sample.
-    ``host_crop`` (r0, r1, c0, c1) is applied on the host after the fetch."""
+    ``host_crop`` (r0, r1, c0, c1) is applied on the host after the fetch.
+    ``on_stage(name)`` is called entering the 'fetch' (device to host) and
+    'encode' (host container encode) stages: the progress of an async
+    export."""
     from ..utils.transfer import fetch_np, fetch_u8_hwc, fetch_u16_hwc
+
+    stage = on_stage or (lambda _name: None)
 
     def hcrop(hwc):
         if host_crop is None:
@@ -557,12 +618,18 @@ def encode_image(planes: torch.Tensor, fmt: str, quality: int = 95,
             "for CFA mosaics (or the editor's save_hdr_dng for the "
             "scene-linear render)")
     if fmt == "PNG16":
-        return encode_png16(hcrop(fetch_u16_hwc(planes)), exif_bytes=exif_bytes)
+        stage("fetch")
+        hwc = hcrop(fetch_u16_hwc(planes))
+        stage("encode")
+        return encode_png16(hwc, exif_bytes=exif_bytes)
     if fmt == "PPM16":
         # PPM16 is a LINEAR container (the decode takes its samples as
         # linear light): undo the render's sRGB OETF before storing.
         lin = srgb_to_linear(torch.clamp(planes, 0.0, 1.0))
-        return encode_ppm16(hcrop(fetch_np(lin).transpose(1, 2, 0)))
+        stage("fetch")
+        hwc = hcrop(fetch_np(lin).transpose(1, 2, 0))
+        stage("encode")
+        return encode_ppm16(hwc)
     if fmt == "JPEG" and host_crop is None:
         from . import jpegenc
 
@@ -571,10 +638,13 @@ def encode_image(planes: torch.Tensor, fmt: str, quality: int = 95,
             # Export-sized: the device wires. Previews stay on the u8 path;
             # a crop (host_crop) cannot slice DCT blocks, so it does too.
             return jpegenc.encode_jpeg(planes, quality=quality,
-                                       exif_bytes=exif_bytes)
+                                       exif_bytes=exif_bytes,
+                                       on_stage=on_stage)
     from PIL import Image as PILImage
 
+    stage("fetch")
     u8 = hcrop(fetch_u8_hwc(planes))
+    stage("encode")
     img = PILImage.fromarray(u8, mode="RGB")
     buf = _io.BytesIO()
     save_kwargs = {}

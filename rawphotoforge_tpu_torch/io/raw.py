@@ -118,9 +118,11 @@ def decode_embedded_preview(data: bytes, device=None):
     return hd.upload(resolve_device(device)), hd.exif
 
 
-def decode_embedded_preview_host(data: bytes):
+def decode_embedded_preview_host(data: bytes,
+                                 instant_long_edge: int | None = None):
     """Host phase of decode_embedded_preview: preview extraction, the
-    Pillow decode and the container-EXIF merge (image_io.HostDecoded)."""
+    Pillow decode (with its instant preview at ``instant_long_edge``) and
+    the container-EXIF merge (image_io.HostDecoded)."""
     from .._errbase import PhotoEditorError
     from .dng import extract_preview
     from .image_io import ImageIOError, decode_image_host
@@ -129,7 +131,8 @@ def decode_embedded_preview_host(data: bytes):
     if jpeg is None:
         return None
     try:
-        hd = decode_image_host(jpeg, "JPEG")
+        hd = decode_image_host(jpeg, "JPEG",
+                               instant_long_edge=instant_long_edge)
     except PhotoEditorError:
         raise
     except Exception as e:  # noqa: BLE001 — PIL's hierarchy stays inside
@@ -427,13 +430,17 @@ def read_raw(path_or_bytes, method: str = "malvar", device=None):
 
 class RawHostDecoded:
     """The host half of a RAW decode (image_io.HostDecoded's contract):
-    metadata and the final true shape, knowable without developing, and
-    the device half as ``upload`` / ``upload_padded``."""
+    metadata and the final true shape, knowable without developing, the
+    superpixel instant preview (``instant`` u8 HWC and its linear planes
+    ``instant_linear``, or None), and the device half as ``upload`` /
+    ``upload_padded``."""
 
-    __slots__ = ("exif", "shape", "raw")
+    __slots__ = ("exif", "shape", "raw", "instant", "instant_linear")
 
-    def __init__(self, raw: RawImage):
+    def __init__(self, raw: RawImage, instant=None, instant_linear=None):
         self.raw = raw
+        self.instant = instant
+        self.instant_linear = instant_linear
         self.exif = dict(raw.exif)
         h, w = raw.mosaic.shape[:2]
         if raw.default_crop is not None:
@@ -461,10 +468,20 @@ class RawHostDecoded:
             *self.shape)
 
 
-def decode_raw_host(data: bytes) -> RawHostDecoded:
+def decode_raw_host(data: bytes,
+                    instant_long_edge: int | None = None) -> RawHostDecoded:
     """Host phase of a RAW decode: the container parse (every file-content
-    error surfaces here); the develop runs at upload."""
-    return RawHostDecoded(parse_raw(data))
+    error surfaces here) and, with ``instant_long_edge``, the superpixel
+    instant preview (``engine/instant``); the develop runs at upload."""
+    raw = parse_raw(data)
+    pv = lin = None
+    if instant_long_edge:
+        from ..engine import instant
+
+        lin = instant.quick_linear_from_raw(raw, instant_long_edge)
+        if lin is not None:
+            pv = instant._to_u8_hwc(lin)
+    return RawHostDecoded(raw, instant=pv, instant_linear=lin)
 
 
 def synthetic_raw(

@@ -16,6 +16,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -45,11 +46,24 @@ def _nvcc() -> str:
                            "machine with the CUDA toolkit")
 
 
+# One build at a time per library: a server's warm-up thread and its first
+# request may both ask for the same library.
+_BUILD_LOCK = threading.Lock()
+_NAME_LOCKS: dict[str, threading.Lock] = {}
+
+
 def build(name: str, main_source: str) -> tuple[ctypes.CDLL, dict]:
     """Compile ``csrc/<main_source>`` (with every header in ``csrc/``) and
     load it. Returns the library and a build record: ``seconds`` (0.0 when
     an existing build was reused), ``log`` (nvcc's output, including the
     ``-Xptxas -v`` register and spill report) and ``path``."""
+    with _BUILD_LOCK:
+        lock = _NAME_LOCKS.setdefault(name, threading.Lock())
+    with lock:
+        return _build(name, main_source)
+
+
+def _build(name: str, main_source: str) -> tuple[ctypes.CDLL, dict]:
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for src in sorted(CSRC.iterdir()):
         if src.suffix in (".cu", ".cuh"):

@@ -6,8 +6,11 @@ and bit packer (``io/ljpeg``), the baseline JPEG 4:2:0 encoder
 (``io/jpegenc``) and the stream assemblers of the JPEG device wires
 (sparse, prepacked, packed; ``io/jpegenc``, ``io/jpegbits``), the Sony ARW2
 and Panasonic RAW4 decoders
-(``io/vendor_packed``) and the per-CFA-tile block means of the decode gate
-(``engine/instant``). The library is built at first use (never at import) with
+(``io/vendor_packed``), the per-CFA-tile block means of the decode gate
+(``engine/instant``) and the host develop of the server's instant era and
+drag previews (``engine/hostdev``: the fused one-pass develop, the
+lens-distortion warp, the unsharp, the similarity and geodesic mask
+logits). The library is built at first use (never at import) with
 ``g++`` and the JAX package's Makefile flags (less ``-fopenmp``) into
 ``<package>/build/``
 (listed in .gitignore), keyed by a hash of the source, the flags and the
@@ -26,6 +29,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -45,6 +49,8 @@ CXX_FLAGS = ("-O3", "-march=native", "-ffp-contract=off", "-fno-math-errno",
 # Build record of the loaded library ({seconds, log, path}), or None.
 BUILD = None
 _LIB = None
+# One build at a time (a server's warm-up thread and a request may race).
+_LOCK = threading.Lock()
 
 
 class NativeBuildError(PhotoEditorError):
@@ -66,6 +72,13 @@ def _cpu_key() -> bytes:
 
 def library() -> ctypes.CDLL:
     """The built and loaded native library (built at the first call)."""
+    if _LIB is not None:
+        return _LIB
+    with _LOCK:
+        return _load()
+
+
+def _load() -> ctypes.CDLL:
     global _LIB, BUILD
     if _LIB is not None:
         return _LIB
@@ -139,6 +152,19 @@ def _bind(lib) -> None:
         u16p, c, c, c, c, i32p, ctypes.c_float, ctypes.c_float, f32p,
     ]
     lib.rpf_cfa_block_means.restype = c
+    cf = ctypes.c_float
+    lib.rpf_hostdev_develop.argtypes = [
+        f32p, c, c, c, f32p, f32p, i32p, i32p, c, f32p, cf, u8p]
+    lib.rpf_hostdev_develop.restype = c
+    lib.rpf_warp_f32.argtypes = [f32p, c, c, cf, f32p]
+    lib.rpf_warp_f32.restype = c
+    lib.rpf_similarity_logits.argtypes = [f32p, c, c, c, c, cf, cf, f32p, f32p]
+    lib.rpf_similarity_logits.restype = c
+    lib.rpf_geodesic_logits.argtypes = [
+        f32p, c, c, c, c, cf, cf, c, cf, f32p, f32p]
+    lib.rpf_geodesic_logits.restype = c
+    lib.rpf_unsharp_f32.argtypes = [f32p, c, c, f32p, c, cf, f32p]
+    lib.rpf_unsharp_f32.restype = c
 
 
 def ljpeg_decode_scan(seg: bytes, out, frame, mcu_start: int, mcu_count: int,
@@ -361,4 +387,135 @@ def cfa_block_means(t_u16, ph: int, pw: int, tile_flat, black: float,
                                  float(black), float(span), out)
     if rc != 0:
         raise ValueError(f"rpf_cfa_block_means failed (rc={rc})")
+    return out
+
+
+def hostdev_develop(planes, masks, mrow, lut_idx, luts, mats,
+                    vig_strength: float):
+    """Fused host develop: [3, H, W] linear f32 -> u8 HWC in one pass.
+
+    ``masks``: f32 [M, H, W] 0/1 (None for the single-mask session);
+    ``mrow``/``lut_idx``/``luts``/``mats``: the packed per-mask scalars,
+    LUT row table, concatenated i32 LUT rows and colour-matrix block built
+    by ``engine/hostdev._pack_native`` (which owns the semantics)."""
+    lib = library()
+    planes = np.ascontiguousarray(planes, dtype=np.float32)
+    if planes.ndim != 3 or planes.shape[0] != 3:
+        raise ValueError(f"planes must be [3, H, W], got {planes.shape}")
+    _, h, w = planes.shape
+    mrow = np.ascontiguousarray(mrow, dtype=np.float32)
+    n_masks = mrow.shape[0]
+    if masks is None:
+        if n_masks != 1:
+            raise ValueError("masks required when more than one mask")
+        marr = np.zeros(1, dtype=np.float32)
+    else:
+        marr = np.ascontiguousarray(masks, dtype=np.float32)
+        if marr.shape != (n_masks, h, w):
+            raise ValueError(
+                f"masks must be ({n_masks}, {h}, {w}), got {marr.shape}")
+    lut_idx = np.ascontiguousarray(lut_idx, dtype=np.int32)
+    if lut_idx.shape != (n_masks, 4):
+        raise ValueError(f"lut_idx must be ({n_masks}, 4), got {lut_idx.shape}")
+    luts = np.ascontiguousarray(luts, dtype=np.int32)
+    n_rows = int(luts.size) // 65536
+    if luts.size != n_rows * 65536:
+        raise ValueError("luts must be a whole number of 65536-entry rows")
+    if luts.size == 0:
+        luts = np.zeros(1, dtype=np.int32)
+    mats = np.ascontiguousarray(mats, dtype=np.float32)
+    if mats.size != 39:
+        raise ValueError(f"mats must have 39 entries, got {mats.size}")
+    out = np.empty((h, w, 3), dtype=np.uint8)
+    rc = lib.rpf_hostdev_develop(
+        planes, h, w, n_masks, marr, mrow.reshape(-1), lut_idx.reshape(-1),
+        luts.reshape(-1), n_rows, mats.reshape(-1), float(vig_strength), out)
+    if rc != 0:
+        raise ValueError(f"rpf_hostdev_develop failed (rc={rc})")
+    return out
+
+
+def _check_planes_point(planes, point_yx):
+    p = np.ascontiguousarray(planes, dtype=np.float32)
+    if p.ndim != 3 or p.shape[0] != 3:
+        raise ValueError(f"planes must be [3, H, W], got {p.shape}")
+    py, px = int(point_yx[0]), int(point_yx[1])
+    if not (0 <= py < p.shape[1] and 0 <= px < p.shape[2]):
+        raise ValueError(f"point {point_yx} outside {p.shape[1:]}")
+    return p, py, px
+
+
+def _mats18(mats18):
+    m = np.ascontiguousarray(mats18, dtype=np.float32)
+    if m.size != 18:
+        raise ValueError(f"mats18 must have 18 entries, got {m.size}")
+    return m.reshape(-1)
+
+
+def similarity_logits(planes, point_yx, tolerance: float, sigma: float,
+                      mats18):
+    """OKLab similarity logits (``engine/hostdev.similarity_logits_np``'s
+    native mirror); ``mats18`` = M1, M2 row-major f32[18]."""
+    lib = library()
+    p, py, px = _check_planes_point(planes, point_yx)
+    out = np.empty(p.shape[1:], dtype=np.float32)
+    rc = lib.rpf_similarity_logits(p, p.shape[1], p.shape[2], py, px,
+                                   float(tolerance), float(sigma),
+                                   _mats18(mats18), out)
+    if rc != 0:
+        raise ValueError(f"rpf_similarity_logits failed (rc={rc})")
+    return out
+
+
+def geodesic_logits(planes, point_yx, tolerance: float, edge_weight: float,
+                    spatial_cost: float, sweeps: int, mats18):
+    """Geodesic smart-select logits (``engine/hostdev.smart_logits_np``'s
+    native mirror)."""
+    lib = library()
+    p, py, px = _check_planes_point(planes, point_yx)
+    if not 0 <= int(sweeps) <= 64:
+        raise ValueError(f"sweeps must be in [0, 64], got {sweeps}")
+    out = np.empty(p.shape[1:], dtype=np.float32)
+    rc = lib.rpf_geodesic_logits(p, p.shape[1], p.shape[2], py, px,
+                                 float(edge_weight), float(spatial_cost),
+                                 int(sweeps), float(tolerance),
+                                 _mats18(mats18), out)
+    if rc != 0:
+        raise ValueError(f"rpf_geodesic_logits failed (rc={rc})")
+    return out
+
+
+def _check_planes(planes):
+    p = np.ascontiguousarray(planes, dtype=np.float32)
+    if p.ndim != 3 or p.shape[0] != 3:
+        raise ValueError(f"planes must be [3, H, W], got {p.shape}")
+    return p
+
+
+def warp_f32(planes, strength: float):
+    """Radial lens-distortion warp over [3, H, W] f32, bit-identical to
+    ``engine/hostdev.warp_np`` (IEEE f32 arithmetic in the same order).
+    ``strength`` is the already-scaled f32(-0.5 * distortion / 100)."""
+    lib = library()
+    p = _check_planes(planes)
+    out = np.empty_like(p)
+    rc = lib.rpf_warp_f32(p, p.shape[1], p.shape[2], float(strength), out)
+    if rc != 0:
+        raise ValueError(f"rpf_warp_f32 failed (rc={rc})")
+    return out
+
+
+def unsharp_f32(planes, taps, amount: float):
+    """Separable-Gaussian unsharp over [3, H, W] f32, bit-identical to
+    ``engine/hostdev.unsharp_np`` for the same taps."""
+    lib = library()
+    p = _check_planes(planes)
+    t = np.ascontiguousarray(taps, dtype=np.float32)
+    if t.ndim != 1 or t.size % 2 == 0 or t.size > 129:
+        raise ValueError(f"taps must be odd-length 1-D (<=129), got {t.shape}")
+    out = np.empty_like(p)
+    rc = lib.rpf_unsharp_f32(p, p.shape[1], p.shape[2], t, t.size // 2,
+                             float(amount), out)
+    if rc != 0:
+        raise ValueError(f"rpf_unsharp_f32 failed (rc={rc})")
     return out

@@ -5,9 +5,13 @@
 // io/jpegenc.py's dense wire and the stream assemblers of its device wires
 // (sparse nibbles, prepacked and packed bits; io/jpegbits.py), the Sony
 // ARW2 and Panasonic RAW4 decoders
-// behind io/vendor_packed.py, and the per-CFA-tile block means of
-// engine/instant.py. rawphotoforge_tpu_torch/native/__init__.py
-// builds this file with g++ at first use and binds it with ctypes.
+// behind io/vendor_packed.py, the per-CFA-tile block means of
+// engine/instant.py, and the host develop of engine/hostdev.py (the fused
+// one-pass develop, the lens-distortion warp, the unsharp and the era
+// mask selections). rawphotoforge_tpu_torch/native/__init__.py builds
+// this file with g++ at first use and binds it with ctypes. The
+// `#pragma omp` lines come with the copied host-develop code; the build
+// has no -fopenmp, so they are ignored and those loops run on one thread.
 //
 // ABI: plain C, ctypes-friendly. All functions return 0 on success.
 
@@ -974,6 +978,715 @@ int rpf_cfa_block_means(const uint16_t* t, int eh, int ew, int ph, int pw,
     }
   }
   return 0;
+}
+
+
+// ---------------------------------------------------------------------------
+// Fused host-side develop: the whole post-geometry pixel chain (vignette ->
+// per-mask WB/tone/brightness-LUT -> per-mask OKLCH hue/sat/light LUTs ->
+// sRGB -> truncating u8) in ONE pass over the image. This is the *instant
+// era* frame renderer (engine/hostdev.develop_np run ~5x faster): the numpy
+// mirror walks ~50 full-image temporaries through memory; this touches each
+// pixel once. Semantics mirror ops/develop.develop_post_geo
+// (wgpu_shader.wgsl:265-337) exactly — same formula order, the same exact
+// 65536-entry i32 LUT gathers, the same truncating u8 store
+// (image.rs:375-383). Transcendentals are the kernels/ktrig.py polynomial
+// family (Cephes atan2, Taylor sincos, bit-hack+Halley cbrt, and the
+// x^(1/2.4) = cbrt(sqrt(sqrt(x^5))) sRGB pow), all within ~1e-7 of libm —
+// far below one LUT step; the u8 output differs from the numpy mirror only
+// by boundary-straddle flips of 1 (gated in tests/test_hostdev.py).
+// ---------------------------------------------------------------------------
+
+namespace {
+
+__attribute__((always_inline)) inline float rpf_clampf(float v, float lo, float hi) {
+  return v < lo ? lo : (v > hi ? hi : v);
+}
+
+// max(x, 0)^(1/3): exponent bit-hack seed + two Halley iterations
+// (kernels/ktrig.cbrt_fast; ~1 ulp over the OKLab LMS domain).
+__attribute__((always_inline)) inline float rpf_cbrt_fast(float x) {
+  x = std::fabs(x > 0.0f ? x : 0.0f);
+  int32_t i;
+  std::memcpy(&i, &x, 4);
+  i = i / 3 + 709921077;
+  float y;
+  std::memcpy(&y, &i, 4);
+  // Two Halley iterations, hand-unrolled: a `for` here is control flow
+  // the autovectorizer refuses to carry into the SIMD chunk loops.
+  float y3 = y * y * y;
+  y = y * (y3 + 2.0f * x) / (2.0f * y3 + x + 1e-30f);
+  y3 = y * y * y;
+  y = y * (y3 + 2.0f * x) / (2.0f * y3 + x + 1e-30f);
+  return y;
+}
+
+constexpr float RPF_TWO_PI = 6.28318530718f;
+constexpr float RPF_PI = 3.14159265359f;
+constexpr float RPF_HALF_PI = 1.5707963267948966f;
+constexpr float RPF_QUARTER_PI = 0.7853981633974483f;
+constexpr float RPF_TAN_PI_8 = 0.41421356237309503f;
+
+// atan2(y, x) / 2pi wrapped into [0, 1) (kernels/ktrig.atan2_turns:
+// Cephes atanf reduction + odd polynomial, error ~1e-7 rad — one hue-LUT
+// step is 9.6e-5 rad wide). Branch-free (ternaries become vector blends).
+__attribute__((always_inline)) inline float rpf_atan2_turns(float yv, float xv) {
+  float ax = std::fabs(xv), ay = std::fabs(yv);
+  float hi = ax > ay ? ax : ay;
+  float lo = ax > ay ? ay : ax;
+  float t = lo / (hi > 1e-30f ? hi : 1e-30f);
+  float tr = t > RPF_TAN_PI_8 ? (t - 1.0f) / (t + 1.0f) : t;
+  float s = tr * tr;
+  float p = ((8.05374449538e-2f * s - 1.38776856032e-1f) * s +
+             1.99777106478e-1f) * s - 3.33329491539e-1f;
+  float r = tr + tr * s * p;
+  r = t > RPF_TAN_PI_8 ? r + RPF_QUARTER_PI : r;
+  r = ay > ax ? RPF_HALF_PI - r : r;
+  r = xv < 0.0f ? RPF_PI - r : r;
+  r = yv < 0.0f ? -r : r;
+  float h = r * (1.0f / RPF_TWO_PI);
+  return h < 0.0f ? h + 1.0f : h;
+}
+
+// sin / cos of 2*pi*h for h in [0, 1] (kernels/ktrig.sincos_turns). Two
+// pure functions instead of one with out-pointers: address-taken locals
+// give the vectorizer "no vectype" and kill the whole SIMD loop; after
+// inlining, CSE merges the shared reduction anyway.
+__attribute__((always_inline)) inline float rpf_sin_turns(float h) {
+  float k = std::floor(2.0f * h + 0.5f);
+  float u = h - 0.5f * k;
+  float sign = 1.0f - 2.0f * (k - 2.0f * std::floor(0.5f * k));
+  float z = u * RPF_TWO_PI;
+  float z2 = z * z;
+  float sin_p = z * (1.0f + z2 * (-1.6666667163e-1f + z2 * (8.3333337680e-3f
+      + z2 * (-1.9841270114e-4f + z2 * (2.7557314297e-6f
+      + z2 * -2.5050759689e-8f)))));
+  return sign * sin_p;
+}
+
+__attribute__((always_inline)) inline float rpf_cos_turns(float h) {
+  float k = std::floor(2.0f * h + 0.5f);
+  float u = h - 0.5f * k;
+  float sign = 1.0f - 2.0f * (k - 2.0f * std::floor(0.5f * k));
+  float z = u * RPF_TWO_PI;
+  float z2 = z * z;
+  float cos_p = 1.0f + z2 * (-0.5f + z2 * (4.1666667908e-2f
+      + z2 * (-1.3888889225e-3f + z2 * (2.4801587642e-5f
+      + z2 * (-2.7557314297e-7f + z2 * 2.0875723372e-9f)))));
+  return sign * cos_p;
+}
+
+// sRGB OETF with x^(1/2.4) = x^(5/12) = cbrt(sqrt(sqrt(x^5)))
+// (kernels/ktrig.linear_to_srgb_fast — exact exponent algebra).
+__attribute__((always_inline)) inline float rpf_srgb_fast(float c) {
+  float x = c > 0.0f ? c : 0.0f;
+  float x5 = x * x;
+  x5 = x5 * x5 * x;
+  float hi = 1.055f * rpf_cbrt_fast(std::sqrt(std::sqrt(x5))) - 0.055f;
+  return c <= 0.0031308f ? c * 12.92f : hi;  // branch-free: blends
+}
+
+// Exact i32 LUT gather: truncating index like numpy's astype(int32),
+// table clamp to [0, 65535], then the slot's output scale.
+__attribute__((always_inline)) inline float rpf_lut01(const int32_t* lut, float v, float inv_scale) {
+  int idx = static_cast<int>(v * 65535.0f);
+  idx = idx < 0 ? 0 : (idx > 65535 ? 65535 : idx);  // NaN cast lands at 0
+  int32_t q = lut[idx];
+  q = q < 0 ? 0 : (q > 65535 ? 65535 : q);
+  return static_cast<float>(q) * inv_scale;
+}
+
+}  // namespace
+
+// ---------------------------------------------------------------------------
+// Era mask selections, native: OKLab similarity logits and the geodesic
+// (Toivanen raster-sweep) smart-select distance — the per-click selection
+// mirrors of engine/hostdev.similarity_logits_np / smart_logits_np (which
+// mirror ops/masking). Same formula order; the only divergences from the
+// numpy mirrors are cbrt (~1 ulp) and, for similarity, a separable
+// exp(a)*exp(b) in place of exp(a+b) — both tolerance-gated in
+// tests/test_hostdev.py.
+// ---------------------------------------------------------------------------
+
+namespace {
+
+// Linear RGB [3, hw] -> OKLab planes (L, A, B), using the mats block's
+// first 18 floats (M1 then M2, row-major — the core/color constants).
+void rpf_oklab_planes(const float* planes, int64_t hw, const float* m1,
+                      const float* m2, float* L, float* A, float* B) {
+  const float* P0 = planes;
+  const float* P1 = planes + hw;
+  const float* P2 = planes + 2 * hw;
+#pragma omp parallel for schedule(static)
+  for (int64_t i = 0; i < hw; ++i) {
+    float r = P0[i], g = P1[i], b = P2[i];
+    float l_ = rpf_cbrt_fast(m1[0] * r + m1[1] * g + m1[2] * b);
+    float mm = rpf_cbrt_fast(m1[3] * r + m1[4] * g + m1[5] * b);
+    float s_ = rpf_cbrt_fast(m1[6] * r + m1[7] * g + m1[8] * b);
+    L[i] = m2[0] * l_ + m2[1] * mm + m2[2] * s_;
+    A[i] = m2[3] * l_ + m2[4] * mm + m2[5] * s_;
+    B[i] = m2[6] * l_ + m2[7] * mm + m2[8] * s_;
+  }
+}
+
+}  // namespace
+
+// OKLab-distance logits around the prompted pixel, optional Gaussian
+// spatial falloff (hostdev.similarity_logits_np; ops/masking contract).
+// mats18 = M1, M2 row-major.
+int rpf_similarity_logits(const float* planes, int h, int w, int py, int px,
+                          float tol, float sigma, const float* mats18,
+                          float* out) {
+  if (!planes || !out || !mats18 || h <= 0 || w <= 0 || py < 0 || py >= h ||
+      px < 0 || px >= w)
+    return RPF_ERR_ARGS;
+  const int64_t hw = static_cast<int64_t>(h) * w;
+  float* L = new (std::nothrow) float[hw * 3];
+  if (!L) return RPF_ERR_ARGS;
+  float* A = L + hw;
+  float* B = L + 2 * hw;
+  rpf_oklab_planes(planes, hw, mats18, mats18 + 9, L, A, B);
+  const int64_t seed = static_cast<int64_t>(py) * w + px;
+  const float L0 = L[seed], A0 = A[seed], B0 = B[seed];
+  const float tolc = tol > 1e-6f ? tol : 1e-6f;
+
+  // Separable spatial factors (exp(a + b) == exp(a) * exp(b) up to one
+  // ulp; the numpy mirror evaluates the sum — tolerance-gated).
+  float* ey = nullptr;
+  float* ex = nullptr;
+  if (sigma > 0.0f) {
+    ey = new (std::nothrow) float[h + w];
+    if (!ey) {
+      delete[] L;
+      return RPF_ERR_ARGS;
+    }
+    ex = ey + h;
+    float s = sigma > 1.0f ? sigma : 1.0f;
+    float inv2s2 = -0.5f / (s * s);
+    for (int y = 0; y < h; ++y) {
+      float d = static_cast<float>(y) - static_cast<float>(py);
+      ey[y] = std::exp(d * d * inv2s2);
+    }
+    for (int x = 0; x < w; ++x) {
+      float d = static_cast<float>(x) - static_cast<float>(px);
+      ex[x] = std::exp(d * d * inv2s2);
+    }
+  }
+
+#pragma omp parallel for schedule(static)
+  for (int y = 0; y < h; ++y) {
+    const float eyv = ey ? ey[y] : 0.0f;
+    const int64_t row = static_cast<int64_t>(y) * w;
+#pragma omp simd
+    for (int x = 0; x < w; ++x) {
+      int64_t i = row + x;
+      float dl = L[i] - L0, da = A[i] - A0, db = B[i] - B0;
+      float dist = std::sqrt(dl * dl + da * da + db * db);
+      float lg = 1.0f - dist / tolc;
+      if (ey) {
+        float sp = eyv * ex[x];
+        lg = lg * sp - (1.0f - sp);
+      }
+      out[i] = rpf_clampf(lg, -1.0f, 1.0f);
+    }
+  }
+  delete[] ey;
+  delete[] L;
+  return RPF_OK;
+}
+
+// Edge-aware geodesic smart-select logits: Toivanen-style alternating
+// raster sweeps of the OKLab-gradient distance transform, then
+// clip(1 - d/tol, -1, 1) (hostdev.smart_logits_np / geodesic_distance_np:
+// per sweep, down -> up -> right -> left, each relaxation reading the
+// just-relaxed neighbor like the numpy in-place rows).
+int rpf_geodesic_logits(const float* planes, int h, int w, int py, int px,
+                        float edge_weight, float spatial_cost, int sweeps,
+                        float tol, const float* mats18, float* out) {
+  if (!planes || !out || !mats18 || h <= 0 || w <= 0 || py < 0 || py >= h ||
+      px < 0 || px >= w || sweeps < 0 || sweeps > 64)
+    return RPF_ERR_ARGS;
+  const int64_t hw = static_cast<int64_t>(h) * w;
+  // Layout: L/A/B planes, then the vertical [h-1, w] and horizontal
+  // [h, w-1] step costs, then the distance field.
+  float* L = new (std::nothrow) float[hw * 3];
+  float* gv = new (std::nothrow) float[(h > 1 ? (h - 1) : 0) *
+                                       static_cast<int64_t>(w) + 1];
+  float* gh = new (std::nothrow) float[static_cast<int64_t>(h) *
+                                       (w > 1 ? (w - 1) : 0) + 1];
+  float* d = new (std::nothrow) float[hw];
+  if (!L || !gv || !gh || !d) {
+    delete[] L; delete[] gv; delete[] gh; delete[] d;
+    return RPF_ERR_ARGS;
+  }
+  float* A = L + hw;
+  float* B = L + 2 * hw;
+  rpf_oklab_planes(planes, hw, mats18, mats18 + 9, L, A, B);
+
+  // Step costs: |grad Lab| * edge_weight + spatial_cost along each axis.
+  const int gw = w - 1;
+#pragma omp parallel for schedule(static)
+  for (int y = 0; y < h; ++y) {
+    const int64_t row = static_cast<int64_t>(y) * w;
+    if (y < h - 1) {
+      float* gvr = gv + static_cast<int64_t>(y) * w;
+#pragma omp simd
+      for (int x = 0; x < w; ++x) {
+        int64_t i = row + x;
+        float dl = L[i + w] - L[i];
+        float da = A[i + w] - A[i];
+        float db = B[i + w] - B[i];
+        gvr[x] = std::sqrt(dl * dl + da * da + db * db) * edge_weight +
+                 spatial_cost;
+      }
+    }
+    if (gw > 0) {
+      float* ghr = gh + static_cast<int64_t>(y) * gw;
+#pragma omp simd
+      for (int x = 0; x < gw; ++x) {
+        int64_t i = row + x;
+        float dl = L[i + 1] - L[i];
+        float da = A[i + 1] - A[i];
+        float db = B[i + 1] - B[i];
+        ghr[x] = std::sqrt(dl * dl + da * da + db * db) * edge_weight +
+                 spatial_cost;
+      }
+    }
+  }
+
+  for (int64_t i = 0; i < hw; ++i) d[i] = 1e9f;
+  d[static_cast<int64_t>(py) * w + px] = 0.0f;
+
+  for (int s = 0; s < sweeps; ++s) {
+    // Down: d[y] = min(d[y], d[y-1] + gv[y-1]) — rows in order, each
+    // reading the just-relaxed previous row (the scan carry).
+    for (int y = 1; y < h; ++y) {
+      float* dr = d + static_cast<int64_t>(y) * w;
+      const float* dp = dr - w;
+      const float* c = gv + static_cast<int64_t>(y - 1) * w;
+#pragma omp simd
+      for (int x = 0; x < w; ++x) {
+        float v = dp[x] + c[x];
+        dr[x] = dr[x] < v ? dr[x] : v;
+      }
+    }
+    // Up: d[y] = min(d[y], d[y+1] + gv[y]).
+    for (int y = h - 2; y >= 0; --y) {
+      float* dr = d + static_cast<int64_t>(y) * w;
+      const float* dn = dr + w;
+      const float* c = gv + static_cast<int64_t>(y) * w;
+#pragma omp simd
+      for (int x = 0; x < w; ++x) {
+        float v = dn[x] + c[x];
+        dr[x] = dr[x] < v ? dr[x] : v;
+      }
+    }
+    // Right then left: sequential chains along x, rows independent.
+    if (gw > 0) {
+#pragma omp parallel for schedule(static)
+      for (int y = 0; y < h; ++y) {
+        float* dr = d + static_cast<int64_t>(y) * w;
+        const float* c = gh + static_cast<int64_t>(y) * gw;
+        for (int x = 1; x < w; ++x) {
+          float v = dr[x - 1] + c[x - 1];
+          if (v < dr[x]) dr[x] = v;
+        }
+        for (int x = w - 2; x >= 0; --x) {
+          float v = dr[x + 1] + c[x];
+          if (v < dr[x]) dr[x] = v;
+        }
+      }
+    }
+  }
+
+  const float tolc = tol > 1e-6f ? tol : 1e-6f;
+#pragma omp parallel for schedule(static)
+  for (int64_t i = 0; i < hw; ++i)
+    out[i] = rpf_clampf(1.0f - d[i] / tolc, -1.0f, 1.0f);
+  delete[] L; delete[] gv; delete[] gh; delete[] d;
+  return RPF_OK;
+}
+
+// ---------------------------------------------------------------------------
+// Era geometry stage, native: radial lens-distortion warp and unsharp mask
+// over [3, H, W] f32. BIT-IDENTICAL mirrors of engine/hostdev.warp_np /
+// unsharp_np (which mirror ops/geometry + ops/sharpen,
+// wgpu_shader.wgsl:109-164): every operation is plain IEEE f32 arithmetic
+// in the same order — no transcendentals — so outputs equal the numpy
+// mirror exactly and the fused develop's input is unchanged by taking the
+// native path.
+// ---------------------------------------------------------------------------
+
+// Radial warp; OOB pixels go black. strength = f32(-0.5 * distortion/100).
+int rpf_warp_f32(const float* planes, int h, int w, float strength,
+                 float* out) {
+  if (!planes || !out || h <= 0 || w <= 0) return RPF_ERR_ARGS;
+  const int64_t hw = static_cast<int64_t>(h) * w;
+  const float hf = static_cast<float>(h), wf = static_cast<float>(w);
+  const float aspect = wf / hf;
+
+#pragma omp parallel for schedule(static)
+  for (int y = 0; y < h; ++y) {
+    const float v = static_cast<float>(y) / hf;
+    const float cv = v - 0.5f;
+    // Per-row staging so the coordinate math vectorizes; the bilinear
+    // gather stays a scalar loop over the row.
+    enum { WCHUNK = 256 };
+    for (int x0c = 0; x0c < w; x0c += WCHUNK) {
+      const int n = (w - x0c) < WCHUNK ? (w - x0c) : WCHUNK;
+      int xi0[WCHUNK], yi0[WCHUNK], xi1[WCHUNK], yi1[WCHUNK];
+      float txa[WCHUNK], tya[WCHUNK];
+      uint8_t oob[WCHUNK];
+#pragma omp simd
+      for (int j = 0; j < n; ++j) {
+        float u = static_cast<float>(x0c + j) / wf;
+        float cu = (u - 0.5f) * aspect;
+        float r2 = cu * cu + cv * cv;
+        float denom = 1.0f + strength * r2;
+        float fu = (cu / denom) / aspect + 0.5f;
+        float fv = cv / denom + 0.5f;
+        oob[j] = (fu < 0.0f) | (fu > 1.0f) | (fv < 0.0f) | (fv > 1.0f);
+        float px = fu * (wf - 1.0f);
+        float py = fv * (hf - 1.0f);
+        float x0f = std::floor(px);
+        float y0f = std::floor(py);
+        // Match warp_np exactly: clip the i32 cast of the floor (the
+        // cast of a huge/NaN float is UB in C, so clamp in float first
+        // — OOB lanes are overwritten with 0 anyway).
+        float x0cl = x0f < 0.0f ? 0.0f : x0f;
+        x0cl = x0cl > wf - 1.0f ? wf - 1.0f : x0cl;
+        float y0cl = y0f < 0.0f ? 0.0f : y0f;
+        y0cl = y0cl > hf - 1.0f ? hf - 1.0f : y0cl;
+        int xi = static_cast<int>(x0cl);
+        int yi = static_cast<int>(y0cl);
+        xi0[j] = xi;
+        yi0[j] = yi;
+        xi1[j] = xi + 1 < w - 1 ? xi + 1 : w - 1;
+        yi1[j] = yi + 1 < h - 1 ? yi + 1 : h - 1;
+        txa[j] = px - x0f;
+        tya[j] = py - y0f;
+      }
+      for (int c = 0; c < 3; ++c) {
+        const float* p = planes + c * hw;
+        float* o = out + c * hw + static_cast<int64_t>(y) * w + x0c;
+        for (int j = 0; j < n; ++j) {
+          float tx = txa[j], ty = tya[j];
+          float top = p[static_cast<int64_t>(yi0[j]) * w + xi0[j]]
+                          * (1.0f - tx)
+                      + p[static_cast<int64_t>(yi0[j]) * w + xi1[j]] * tx;
+          float bot = p[static_cast<int64_t>(yi1[j]) * w + xi0[j]]
+                          * (1.0f - tx)
+                      + p[static_cast<int64_t>(yi1[j]) * w + xi1[j]] * tx;
+          o[j] = oob[j] ? 0.0f : top * (1.0f - ty) + bot * ty;
+        }
+      }
+    }
+  }
+  return RPF_OK;
+}
+
+// Separable-Gaussian unsharp mask: out = max(x + amount*(x - blur(x)), 0)
+// over [3, H, W]; taps has 2*radius+1 entries. Padding mirrors numpy:
+// reflect when the axis is longer than radius, edge-clamp otherwise.
+static inline int rpf_reflect_idx(int i, int n, bool edge) {
+  if (edge) return i < 0 ? 0 : (i >= n ? n - 1 : i);
+  if (i < 0) return -i;
+  if (i >= n) return 2 * n - 2 - i;
+  return i;
+}
+
+int rpf_unsharp_f32(const float* planes, int h, int w, const float* taps,
+                    int radius, float amount, float* out) {
+  if (!planes || !out || !taps || h <= 0 || w <= 0 || radius < 0 ||
+      radius > 64)
+    return RPF_ERR_ARGS;
+  const int64_t hw = static_cast<int64_t>(h) * w;
+  const int nt = 2 * radius + 1;
+  const bool edge_y = h <= radius, edge_x = w <= radius;
+  float* tmp = new (std::nothrow) float[hw];
+  if (!tmp) return RPF_ERR_ARGS;
+
+  for (int c = 0; c < 3; ++c) {
+    const float* src = planes + c * hw;
+    float* dst = out + c * hw;
+    // Vertical pass into tmp: accumulate taps in index order, exactly
+    // like _blur_axis_np's `out += wgt * xp[slice]` chain.
+#pragma omp parallel for schedule(static)
+    for (int y = 0; y < h; ++y) {
+      int idx[129] = {0};  // nt >= 1 always fills idx[0]; zero-init
+                           // quiets gcc's maybe-uninitialized.
+      for (int i = 0; i < nt; ++i)
+        idx[i] = rpf_reflect_idx(y + i - radius, h, edge_y);
+      float* trow = tmp + static_cast<int64_t>(y) * w;
+      const float* r0 = src + static_cast<int64_t>(idx[0]) * w;
+#pragma omp simd
+      for (int x = 0; x < w; ++x) trow[x] = taps[0] * r0[x];
+      for (int i = 1; i < nt; ++i) {
+        const float* ri = src + static_cast<int64_t>(idx[i]) * w;
+        const float wgt = taps[i];
+#pragma omp simd
+        for (int x = 0; x < w; ++x) trow[x] += wgt * ri[x];
+      }
+    }
+    // Horizontal pass + combine.
+#pragma omp parallel for schedule(static)
+    for (int y = 0; y < h; ++y) {
+      const float* trow = tmp + static_cast<int64_t>(y) * w;
+      const float* srow = src + static_cast<int64_t>(y) * w;
+      float* drow = dst + static_cast<int64_t>(y) * w;
+      const int lo = radius, hi = w - radius;
+      // Borders: reflected/clamped indices, scalar.
+      for (int x = 0; x < w; ++x) {
+        if (x >= lo && x < hi && !edge_x) continue;
+        float acc = 0.0f;
+        for (int i = 0; i < nt; ++i)
+          acc += taps[i] * trow[rpf_reflect_idx(x + i - radius, w, edge_x)];
+        float v = srow[x] + amount * (srow[x] - acc);
+        drow[x] = v > 0.0f ? v : 0.0f;
+      }
+      if (edge_x) continue;
+      // Interior: direct windows, vectorizes.
+#pragma omp simd
+      for (int x = lo; x < hi; ++x) {
+        float acc = taps[0] * trow[x - radius];
+        for (int i = 1; i < nt; ++i) acc += taps[i] * trow[x - radius + i];
+        float v = srow[x] + amount * (srow[x] - acc);
+        drow[x] = v > 0.0f ? v : 0.0f;
+      }
+    }
+  }
+  delete[] tmp;
+  return RPF_OK;
+}
+
+// planes: [3, h, w] f32 post-warp/unsharp linear RGB. masks: [n_masks, h, w]
+// f32 0/1 (row 0 never read; pass a dummy when n_masks == 1). mrow: per-mask
+// f32[16]: 0-2 WB gains, 3 exp2(exposure), 4 contrast/100 (gate), 5
+// shadow/100, 6 highlight/100, 7 black/100, 8 white/100, 9 brightness
+// channel (-1 = LUT inactive, else 0/1/2/3), 10 reserved, 11 precomputed
+// f32(1 + contrast/100), 12-15 reserved. lut_idx: i32[n_masks*4] rows into
+// ``luts`` for (brightness, hue, sat, light), -1 = absent; a mask's three
+// OKLCH rows are all present or all absent. mats: f32[39] = M1, M2, M2_INV,
+// M1_INV row-major + (LUMA_R, LUMA_G, LUMA_B). vig_strength: the
+// already-scaled f32((-vignette/100)*2), 0 = skip. out: u8 [h, w, 3].
+int rpf_hostdev_develop(const float* planes, int h, int w, int n_masks,
+                        const float* masks, const float* mrow,
+                        const int32_t* lut_idx, const int32_t* luts,
+                        int n_lut_rows, const float* mats,
+                        float vig_strength, uint8_t* out) {
+  if (!planes || !mrow || !lut_idx || !mats || !out || h <= 0 || w <= 0 ||
+      n_masks < 1 || (n_masks > 1 && !masks) || (n_lut_rows > 0 && !luts))
+    return RPF_ERR_ARGS;
+  for (int k = 0; k < n_masks * 4; ++k)
+    if (lut_idx[k] >= n_lut_rows || lut_idx[k] < -1) return RPF_ERR_ARGS;
+
+  const int64_t hw = static_cast<int64_t>(h) * w;
+  const float* P0 = planes;
+  const float* P1 = planes + hw;
+  const float* P2 = planes + 2 * hw;
+  const float* m1 = mats;        // linear sRGB -> LMS
+  const float* m2 = mats + 9;    // cbrt(LMS) -> OKLab
+  const float* m2i = mats + 18;  // OKLab -> cbrt(LMS)
+  const float* m1i = mats + 27;  // LMS -> linear sRGB
+  const float lum_r = mats[36], lum_g = mats[37], lum_b = mats[38];
+
+  bool any_oklch = false;
+  for (int k = 0; k < n_masks; ++k) any_oklch |= (lut_idx[k * 4 + 1] >= 0);
+
+  const float hf = static_cast<float>(h), wf = static_cast<float>(w);
+
+  // Chunked structure: each stage is a short, branch-free loop over a
+  // stack-resident chunk so the autovectorizer turns it into SIMD; LUT
+  // gathers stay scalar loops over the same chunk. Per-mask uniform
+  // conditions (contrast on? which channels take the brightness curve?)
+  // hoist out of the lane loops as scalars feeding blends.
+  enum { CHUNK = 256 };
+
+#pragma omp parallel for schedule(static)
+  for (int y = 0; y < h; ++y) {
+    const float cy = (static_cast<float>(y) / hf - 0.5f) * 1.5f;
+    for (int x0 = 0; x0 < w; x0 += CHUNK) {
+      const int n = (w - x0) < CHUNK ? (w - x0) : CHUNK;
+      const int64_t base = static_cast<int64_t>(y) * w + x0;
+      float R[CHUNK], G[CHUNK], B[CHUNK];
+
+      if (vig_strength != 0.0f) {  // ops/pointwise.vignette (wgsl:166-178)
+        const float cy2 = cy * cy;
+#pragma omp simd
+        for (int j = 0; j < n; ++j) {
+          float cx = (static_cast<float>(x0 + j) / wf - 0.5f) * 1.5f;
+          float dist = std::sqrt(cx * cx + cy2);
+          float t = rpf_clampf((dist - 0.25f) / 0.75f, 0.0f, 1.0f);
+          float gain = rpf_clampf(1.0f - vig_strength * (t * std::sqrt(t)),
+                                  0.0f, 4.0f);
+          R[j] = P0[base + j] * gain;
+          G[j] = P1[base + j] * gain;
+          B[j] = P2[base + j] * gain;
+        }
+      } else {
+#pragma omp simd
+        for (int j = 0; j < n; ++j) {
+          R[j] = P0[base + j];
+          G[j] = P1[base + j];
+          B[j] = P2[base + j];
+        }
+      }
+
+      // Per-mask linear pass over the RUNNING values: WB -> tone ->
+      // brightness LUT (develop_post_geo's first loop; unselected lanes
+      // keep the running value, selected ones take the mask's output).
+      for (int k = 0; k < n_masks; ++k) {
+        const float* m = mrow + k * 16;
+        const float* mk = k > 0 ? masks + k * hw + base : nullptr;
+        const float has_contrast = m[4] != 0.0f ? 1.0f : 0.0f;
+        const float cmul = m[11];
+        float RK[CHUNK], GK[CHUNK], BK[CHUNK];
+#pragma omp simd
+        for (int j = 0; j < n; ++j) {
+          float rk = R[j] * m[0], gk = G[j] * m[1], bk = B[j] * m[2];
+          rk *= m[3];
+          gk *= m[3];
+          bk *= m[3];
+          float yy = lum_r * rk + lum_g * gk + lum_b * bk;
+          float sg = 1.0f + m[5] * rpf_clampf(1.0f - yy, 0.0f, 1.0f);
+          float hg = 1.0f + m[6] * rpf_clampf(yy, 0.0f, 1.0f);
+          rk *= sg * hg;
+          gk *= sg * hg;
+          bk *= sg * hg;
+          float t = rpf_clampf(yy, 0.0f, 1.0f);
+          // black/white lifts apply unconditionally: when the slider is 0
+          // the lift is exactly +0.0f (identity up to -0.0, which the
+          // clamp below erases) — matching develop_np's skipped branch.
+          float lift = m[7] * ((1.0f - t) * (1.0f - t)) + m[8] * (t * t);
+          rk += lift;
+          gk += lift;
+          bk += lift;
+          // Contrast must stay gated: (r - .5)*1 + .5 is NOT the identity
+          // in f32 (absorbs tiny values), so blend on the hoisted flag.
+          float rc = (rk - 0.5f) * cmul + 0.5f;
+          float gc = (gk - 0.5f) * cmul + 0.5f;
+          float bc = (bk - 0.5f) * cmul + 0.5f;
+          rk = has_contrast != 0.0f ? rc : rk;
+          gk = has_contrast != 0.0f ? gc : gk;
+          bk = has_contrast != 0.0f ? bc : bk;
+          RK[j] = rpf_clampf(rk, 0.0f, 1.0f);
+          GK[j] = rpf_clampf(gk, 0.0f, 1.0f);
+          BK[j] = rpf_clampf(bk, 0.0f, 1.0f);
+        }
+        const int bi = lut_idx[k * 4 + 0];
+        if (bi >= 0) {
+          const int32_t* bl = luts + static_cast<int64_t>(bi) * 65536;
+          const int ch = static_cast<int>(m[9]);
+          const bool cr = ch == 0 || ch == 3;
+          const bool cg = ch == 1 || ch == 3;
+          const bool cb = ch == 2 || ch == 3;
+          for (int j = 0; j < n; ++j) {
+            if (cr) RK[j] = rpf_lut01(bl, RK[j], 1.0f / 65535.0f);
+            if (cg) GK[j] = rpf_lut01(bl, GK[j], 1.0f / 65535.0f);
+            if (cb) BK[j] = rpf_lut01(bl, BK[j], 1.0f / 65535.0f);
+          }
+        }
+        if (mk == nullptr) {
+#pragma omp simd
+          for (int j = 0; j < n; ++j) {
+            R[j] = RK[j];
+            G[j] = GK[j];
+            B[j] = BK[j];
+          }
+        } else {
+#pragma omp simd
+          for (int j = 0; j < n; ++j) {
+            R[j] = mk[j] == 1.0f ? RK[j] : R[j];
+            G[j] = mk[j] == 1.0f ? GK[j] : G[j];
+            B[j] = mk[j] == 1.0f ? BK[j] : B[j];
+          }
+        }
+      }
+
+      // Per-mask OKLCH pass (develop_post_geo's second loop); masks whose
+      // hue/sat/light curves are all default are skipped entirely — the
+      // identity_oklch staircase shortcut develop_np also takes.
+      if (any_oklch) {
+        float Lc[CHUNK], Cc[CHUNK], Hc[CHUNK];
+#pragma omp simd
+        for (int j = 0; j < n; ++j) {
+          float l_ = m1[0] * R[j] + m1[1] * G[j] + m1[2] * B[j];
+          float mm = m1[3] * R[j] + m1[4] * G[j] + m1[5] * B[j];
+          float s_ = m1[6] * R[j] + m1[7] * G[j] + m1[8] * B[j];
+          l_ = rpf_cbrt_fast(l_);
+          mm = rpf_cbrt_fast(mm);
+          s_ = rpf_cbrt_fast(s_);
+          float L = m2[0] * l_ + m2[1] * mm + m2[2] * s_;
+          float A = m2[3] * l_ + m2[4] * mm + m2[5] * s_;
+          float Bo = m2[6] * l_ + m2[7] * mm + m2[8] * s_;
+          Lc[j] = L;
+          Cc[j] = std::sqrt(A * A + Bo * Bo);
+          Hc[j] = rpf_atan2_turns(Bo, A);
+        }
+        for (int k = 0; k < n_masks; ++k) {
+          const int hi_ = lut_idx[k * 4 + 1];
+          if (hi_ < 0) continue;
+          const float* mk = k > 0 ? masks + k * hw + base : nullptr;
+          const int32_t* hl = luts + static_cast<int64_t>(hi_) * 65536;
+          const int32_t* sl =
+              luts + static_cast<int64_t>(lut_idx[k * 4 + 2]) * 65536;
+          const int32_t* ll =
+              luts + static_cast<int64_t>(lut_idx[k * 4 + 3]) * 65536;
+          for (int j = 0; j < n; ++j) {
+            if (mk != nullptr && mk[j] != 1.0f) continue;
+            int idx = static_cast<int>(Hc[j] * 65535.0f);
+            idx = idx < 0 ? 0 : (idx > 65535 ? 65535 : idx);
+            int32_t q = hl[idx];
+            q = q < 0 ? 0 : (q > 65535 ? 65535 : q);
+            Hc[j] = static_cast<float>(q) / 65535.0f;
+            q = sl[idx];
+            q = q < 0 ? 0 : (q > 65535 ? 65535 : q);
+            Cc[j] *= static_cast<float>(q) / 32767.5f;
+            q = ll[idx];
+            q = q < 0 ? 0 : (q > 65535 ? 65535 : q);
+            Lc[j] *= static_cast<float>(q) / 32767.5f;
+          }
+        }
+#pragma omp simd
+        for (int j = 0; j < n; ++j) {
+          float A = Cc[j] * rpf_cos_turns(Hc[j]);
+          float Bo = Cc[j] * rpf_sin_turns(Hc[j]);
+          float l_ = m2i[0] * Lc[j] + m2i[1] * A + m2i[2] * Bo;
+          float mm = m2i[3] * Lc[j] + m2i[4] * A + m2i[5] * Bo;
+          float s_ = m2i[6] * Lc[j] + m2i[7] * A + m2i[8] * Bo;
+          l_ = l_ * l_ * l_;
+          mm = mm * mm * mm;
+          s_ = s_ * s_ * s_;
+          R[j] = m1i[0] * l_ + m1i[1] * mm + m1i[2] * s_;
+          G[j] = m1i[3] * l_ + m1i[4] * mm + m1i[5] * s_;
+          B[j] = m1i[6] * l_ + m1i[7] * mm + m1i[8] * s_;
+        }
+      }
+
+      // sRGB encode + clip (NaN-safe clamp first) into planar chunks —
+      // this loop holds the expensive pow chain and MUST vectorize, so
+      // it stays free of the interleaved u8 store (whose stride-3 layout
+      // the vectorizer prices as unprofitable and would scalarize the
+      // whole loop, pow included).
+#pragma omp simd
+      for (int j = 0; j < n; ++j) {
+        float sr = rpf_srgb_fast(R[j]);
+        float sg = rpf_srgb_fast(G[j]);
+        float sb = rpf_srgb_fast(B[j]);
+        R[j] = (sr >= 0.0f) ? (sr < 1.0f ? sr : 1.0f) : 0.0f;
+        G[j] = (sg >= 0.0f) ? (sg < 1.0f ? sg : 1.0f) : 0.0f;
+        B[j] = (sb >= 0.0f) ? (sb < 1.0f ? sb : 1.0f) : 0.0f;
+      }
+      // Truncating u8 interleave (image.rs:375-383's `as u8` store).
+      uint8_t* px = out + base * 3;
+      for (int j = 0; j < n; ++j) {
+        px[j * 3 + 0] = static_cast<uint8_t>(R[j] * 255.0f);
+        px[j * 3 + 1] = static_cast<uint8_t>(G[j] * 255.0f);
+        px[j * 3 + 2] = static_cast<uint8_t>(B[j] * 255.0f);
+      }
+    }
+  }
+  return RPF_OK;
 }
 
 }  // extern "C"

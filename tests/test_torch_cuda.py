@@ -498,3 +498,31 @@ def test_geodesic_cuda_tensors_never_reach_the_twin(dev, monkeypatch):
     with pytest.raises(ValueError, match="contiguous"):
         geodesic.sweep(torch.zeros((8, 6), device=dev).t(), torch.zeros((5, 8), device=dev),
                        torch.zeros((6, 7), device=dev), "down")
+
+
+def test_server_answers_mid_preview_from_a_handler_thread_on_the_card(dev, tmp_path):
+    """The interactive server on the card: a handler thread renders the MID
+    preview through the develop kernel (its launch count rises) and the
+    LOW drag tick renders on the host."""
+    import threading
+    import urllib.request
+
+    from rawphotoforge_tpu_torch.app.server import serve
+    from rawphotoforge_tpu_torch.engine.session import Settings
+
+    rng = np.random.default_rng(11)
+    ed = PhotoEditor.from_rgb_f32(rng.random((300, 450, 3), dtype=np.float32) ** 2,
+                                  device=dev, mid_long_edge=200, low_long_edge=80)
+    httpd = serve(ed, port=0, settings=Settings(),
+                  settings_path=str(tmp_path / "s.json"), prewarm=False)
+    threading.Thread(target=httpd.serve_forever, daemon=True).start()
+    base = f"http://127.0.0.1:{httpd.server_address[1]}"
+    try:
+        before = fused.LAUNCHES
+        with urllib.request.urlopen(base + "/preview?level=mid", timeout=120) as r:
+            assert r.status == 200 and r.read()[:2] == b"\xff\xd8"
+        assert fused.LAUNCHES > before
+        with urllib.request.urlopen(base + "/preview?level=low", timeout=120) as r:
+            assert r.headers.get("X-RPF-HostDrag") == "1"
+    finally:
+        httpd.shutdown()

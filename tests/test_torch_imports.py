@@ -35,6 +35,10 @@ SLICE_6 = ["io.jpegbits", "io.jpegenc", "kernels.jpeg_wire"]
 # Masks, the segmenter adapters, the geodesic sweep kernel and the v1 tone
 # LUT (slice 7); scipy and Pillow load only inside their functions.
 SLICE_7 = ["ops.masking", "engine.segmenter", "kernels.geodesic", "core.tonelut"]
+# The interactive server: settings, translations, the host develop, the
+# warm-up analog and the server itself (slice 8).
+SLICE_8 = ["engine.session", "app.translations", "engine.hostdev",
+           "engine.prewarm", "app.server"]
 
 
 def _clean_env():
@@ -49,8 +53,8 @@ def test_importing_every_port_module_loads_no_jax_and_no_pillow():
     assert out.returncode == 0, out.stderr
     probe = json.loads(out.stdout.strip().splitlines()[-1])
     assert probe["loaded"] == []
-    assert {f"rawphotoforge_tpu_torch.{m}" for m in SLICE_5 + SLICE_6 + SLICE_7} <= set(
-        probe["imported"])
+    assert {f"rawphotoforge_tpu_torch.{m}"
+            for m in SLICE_5 + SLICE_6 + SLICE_7 + SLICE_8} <= set(probe["imported"])
 
 
 @pytest.mark.parametrize("path", sorted(
