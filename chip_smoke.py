@@ -101,8 +101,30 @@ Phases (any failure raises, and the script exits non-zero):
     JPEG kernels launched); no twin call. Prints the open timings, the era
     LOW tick, the drag ticks' p50/p95 with the X-RPF-Drag-Us split, the MID
     release p50, the smart mask, the export and the launch counts.
+ 12. the multi-device layer (parallel/mesh, parallel/spatial, `cli batch`'s
+    mesh path) on the card, after four 24 MP RGGB lossless-JPEG DNGs are
+    written (phase 6's writer, a seed each). 12a, a torch.distributed world
+    of one rank over NCCL in this process: `_batch_mesh_path` over the four
+    DNGs, its files byte for byte those of `batch --no-mesh --exact-path`;
+    develop_spatial_sharded(use_kernel=True) at 4096x6016 with phase 4's
+    M=4 stack, bit for bit the editor's kernel render; histogram_sharded
+    through a real NCCL all_reduce == histogram_rgbl; and
+    export_batch_raw_fused_packed_step on a 6000x4000 RGGB and a 6240x4160
+    X-Trans mosaic, each scan the single-device packed wire's. 12b, two
+    gloo ranks in spawned processes (neither imports jax or a test module)
+    on the same card, every rank on 'sp': develop_spatial_sharded(
+    use_kernel=True) with distortion 35 (the kernel's rows == the
+    single-slab kernel on the gathered geometry bit for bit; the warp within
+    5e-5 x h/64 of the single warp), demosaic_sharded (bit for bit),
+    raw_develop_sharded (within 3e-7), histogram_sharded (exact) and the
+    mesh batch of the four DNGs over both ranks (byte for byte). Prints each
+    step's ms (CUDA events for device work, the host clock with its halo
+    exchanges), the exchanges' bytes, the mesh batch's MPix/s and the
+    launches of each kernel on the path (no twin call). First, the
+    transfers: utils/transfer's put_np and fetch_np against plain torch
+    copies of the same 24 MP arrays (host clock).
 
-Two other modes print only measurements:
+Other modes print only measurements, or check what one card cannot show:
 
     python3 chip_smoke.py --kernel-times   # one JSON line of kernel times
     python3 chip_smoke.py --develop-ab     # the develop kernel with one
@@ -110,6 +132,10 @@ Two other modes print only measurements:
     python3 chip_smoke.py --bayer-ab       # the Bayer RAW kernel at other
                                            # step heights and block sizes,
                                            # and with one stage cut out
+    python3 chip_smoke.py --mesh-cards     # a host with several cards:
+                                           # phase 12b over NCCL, one rank a
+                                           # card, and `cli batch` spawned and
+                                           # under torchrun
 
 A copy of this script placed in another checkout (for example the parent
 commit unpacked under build/) times that checkout's kernels with
@@ -123,6 +149,7 @@ repository beside this file, it exits non-zero and prints no result.
 from __future__ import annotations
 
 import contextlib
+import datetime
 import io
 import json
 import os
@@ -826,13 +853,8 @@ def write_raw_dir(tmp, log):
     for name, pattern, (h, w), orientation, kw in (
             ("bayer24.dng", "RGGB", BAYER_HW, 1, dict(compression=7)),
             ("xtrans26.dng", "XTRANS", XTRANS_HW, 6, dict(compression=1))):
-        yy = np.linspace(0.0, 1.0, h, dtype=np.float32)[:, None]
-        xx = np.linspace(0.0, 1.0, w, dtype=np.float32)[None, :]
-        scene = np.stack([0.15 + 0.6 * yy * np.ones_like(xx),
-                          0.1 + 0.5 * xx * np.ones_like(yy),
-                          0.3 + 0.3 * np.sin(6.0 * (xx + yy))])
-        scene += 0.15 * rng.random((3, h, w), dtype=np.float32)
-        raw = rawio.synthetic_raw(scene, pattern, xyz_to_cam=XYZ_TO_CAM)
+        raw = rawio.synthetic_raw(smooth_scene(rng, h, w), pattern,
+                                  xyz_to_cam=XYZ_TO_CAM)
         raw = dataclasses.replace(raw, orientation=orientation, exif={
             "Make": "Synthetic", "Model": "chip-smoke"})
         t0 = time.perf_counter()
@@ -2334,6 +2356,593 @@ def phase_server(dev, card, log, dng_path):
     return launches
 
 
+# -- the multi-device path (phase 12) -------------------------------------------
+
+MESH_DNGS = 4          # 24 MP RGGB lossless-JPEG DNGs for the mesh batch
+MESH_RANKS = 2         # phase 12b: gloo ranks on the one card
+MESH_DEADLINE_S = 600  # phase 12b's ranks are killed after this
+# The row-sharded warp against the single-device warp: tests/test_sharding.py's
+# 5e-5 at 64 rows, scaled with the height (the coordinates' ulps grow with h).
+WARP_TOL_PER_ROW = 5e-5 / 64
+RAW_SHARDED_TOL = 3e-7  # MULTICHIP_r05.json: raw_develop_sharded.rgb 2.98e-07
+
+
+def smooth_scene(rng, h, w):
+    """Phase 6's seeded smooth-plus-texture linear scene [3, h, w]."""
+    yy = np.linspace(0.0, 1.0, h, dtype=np.float32)[:, None]
+    xx = np.linspace(0.0, 1.0, w, dtype=np.float32)[None, :]
+    scene = np.stack([0.15 + 0.6 * yy * np.ones_like(xx),
+                      0.1 + 0.5 * xx * np.ones_like(yy),
+                      0.3 + 0.3 * np.sin(6.0 * (xx + yy))])
+    return scene + 0.15 * rng.random((3, h, w), dtype=np.float32)
+
+
+def write_mesh_dngs(tmp, log):
+    """Four 24 MP RGGB lossless-JPEG DNGs, each from its own seed."""
+    import dataclasses
+
+    from rawphotoforge_tpu_torch.io import dng, raw as rawio
+
+    h, w = BAYER_HW
+    d = os.path.join(tmp, "mesh_dngs")
+    os.makedirs(d)
+
+    def one(i):
+        raw = rawio.synthetic_raw(smooth_scene(np.random.default_rng(SEED + 40 + i), h, w),
+                                  "RGGB", xyz_to_cam=XYZ_TO_CAM)
+        raw = dataclasses.replace(raw, exif={"Make": "Synthetic",
+                                             "Model": f"chip-smoke-mesh-{i}"})
+        with open(os.path.join(d, f"mesh{i}.dng"), "wb") as f:
+            f.write(dng.write_dng(raw, compression=7))
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(MESH_DNGS) as pool:
+        list(pool.map(one, range(MESH_DNGS)))
+    log(f"phase 12: wrote {MESH_DNGS} {w}x{h} RGGB lossless-JPEG DNGs in "
+        f"{time.perf_counter() - t0:.2f} s")
+    return d
+
+
+def launch_counts():
+    """Every kernel's launch counter, by kernel name."""
+    from rawphotoforge_tpu_torch.kernels import fused, geodesic, jpeg_wire, raw_pipeline
+
+    return dict(develop=fused.LAUNCHES, **raw_pipeline.KERNEL_LAUNCHES,
+                **jpeg_wire.KERNEL_LAUNCHES, **geodesic.KERNEL_LAUNCHES)
+
+
+def zero_launches():
+    from rawphotoforge_tpu_torch.kernels import fused, geodesic, jpeg_wire, raw_pipeline
+
+    fused.LAUNCHES = 0
+    for counts in (raw_pipeline.KERNEL_LAUNCHES, jpeg_wire.KERNEL_LAUNCHES,
+                   geodesic.KERNEL_LAUNCHES):
+        for k in counts:
+            counts[k] = 0
+
+
+class PathLaunches:
+    """Launches of the mesh path's steps only: the counters are set to 0
+    just before each step (``with acc.step():``) and read just after; the
+    single-device references the steps are held to run outside."""
+
+    def __init__(self):
+        self.total = {}
+
+    @contextlib.contextmanager
+    def step(self):
+        import torch
+
+        zero_launches()
+        yield
+        torch.cuda.synchronize()
+        for k, v in launch_counts().items():
+            self.total[k] = self.total.get(k, 0) + v
+
+
+@contextlib.contextmanager
+def counted_twins():
+    """Counts calls of every kernel's plain twin while the block runs."""
+    from rawphotoforge_tpu_torch.io import jpegbits, jpegenc
+    from rawphotoforge_tpu_torch.kernels import fused, geodesic, raw_pipeline
+
+    calls = {}
+    twins = [(fused, "develop_post_geo_fused_ref"),
+             (raw_pipeline, "raw_develop_fused_ref"), (geodesic, "sweep_ref"),
+             (jpegenc, "blockify"), (jpegbits, "prepack"),
+             (jpegbits, "scan_from_words"), (jpegbits, "concat_words")]
+    real = {(m, n): getattr(m, n) for m, n in twins}
+
+    def counted(name, fn):
+        def call(*a, **k):
+            calls[name] = calls.get(name, 0) + 1
+            return fn(*a, **k)
+        return call
+
+    for (m, n), fn in real.items():
+        setattr(m, n, counted(n, fn))
+    try:
+        yield calls
+    finally:
+        for (m, n), fn in real.items():
+            setattr(m, n, fn)
+
+
+def mesh_batch(paths, out_dir, dev):
+    """`cli batch`'s mesh path (``_batch_mesh_path``) over ``paths`` in the
+    current world; returns (rc, rank's stdout, host s)."""
+    from rawphotoforge_tpu_torch.app import cli
+
+    args = cli._parser().parse_args(["batch", os.path.dirname(paths[0]), out_dir,
+                                     *RAW_FLAGS, "--device", str(dev)])
+    os.makedirs(out_dir, exist_ok=True)
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = cli._batch_mesh_path(paths, args)
+    return rc, buf.getvalue(), time.perf_counter() - t0
+
+
+def same_files(a, b):
+    names = sorted(os.listdir(a))
+    check(names == sorted(os.listdir(b)) and names,
+          f"file sets differ: {names} vs {sorted(os.listdir(b))}")
+    for n in names:
+        with open(os.path.join(a, n), "rb") as fa, open(os.path.join(b, n), "rb") as fb:
+            check(fa.read() == fb.read(), f"{n}: the mesh batch's bytes differ from "
+                  "the single-device loop's (--no-mesh --exact-path)")
+    return names
+
+
+def m4_session(dev, distortion=0):
+    """Phase 4's M=4 case: planes on the 24 MP bucket grid, the edit stack
+    packed with the photo's true extent, the u8 masks and the editor's
+    kernel flags."""
+    from rawphotoforge_tpu_torch.core.params import pack_params
+
+    planes, cases = develop_cases(dev)
+    _, stack, masks, flags = cases[-1]
+    stack[0].set_lens_distortion(distortion)
+    params = pack_params(stack, extent=PHOTO_HW, build_luts=False, device=dev)
+    return planes, params, masks, flags
+
+
+def phase_mesh_one(dev, card, log, tmp, dng_dir):
+    """Phase 12a: a world of one rank over NCCL in this process."""
+    import torch
+    import torch.distributed as dist
+
+    from rawphotoforge_tpu_torch.app import cli
+    from rawphotoforge_tpu_torch.io import jpegbits, jpegenc
+    from rawphotoforge_tpu_torch.kernels import fused
+    from rawphotoforge_tpu_torch.kernels.raw_pipeline import raw_develop_fused
+    from rawphotoforge_tpu_torch.ops.stats import histogram_rgbl
+    from rawphotoforge_tpu_torch.parallel import mesh as pm
+
+    dist.init_process_group("nccl", store=dist.FileStore(os.path.join(tmp, "store"), 1),
+                            rank=0, world_size=1, timeout=datetime.timedelta(seconds=300))
+    acc = PathLaunches()
+    try:
+        with counted_twins() as twins:
+            paths = sorted(os.path.join(dng_dir, n) for n in os.listdir(dng_dir))
+            with acc.step():
+                rc, out, wall = mesh_batch(paths, os.path.join(tmp, "mesh_out"), dev)
+            sys.stdout.write(out)
+            check(rc == 0 and "batch (mesh x1)" in out, f"mesh batch exited {rc}")
+            twins_batch = dict(twins)
+        single = os.path.join(tmp, "single_out")
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(["batch", dng_dir, single, "--no-mesh", "--exact-path",
+                           *RAW_FLAGS, "--device", str(dev)])
+        check(rc == 0, f"the single-device loop exited {rc}")
+        names = same_files(os.path.join(tmp, "mesh_out"), single)
+        rate = [ln for ln in out.splitlines() if "MPix/s" in ln][0].strip()
+        single_rate = [ln for ln in buf.getvalue().splitlines() if "MPix/s" in ln][0]
+        log(f"phase 12a: {rate}; {len(names)} files == `batch --no-mesh "
+            f"--exact-path` byte for byte (that loop: {single_rate.strip()}); "
+            f"wall {wall * 1e3:.1f} ms [{card}]")
+
+        m = pm.make_mesh(devices=dev)
+        planes, params, masks, flags = m4_session(dev)
+        with counted_twins() as twins:
+            with acc.step():
+                out_rows = pm.develop_spatial_sharded(
+                    pm.shard_rows(planes, m), params, pm.shard_rows(masks, m), m,
+                    use_kernel=True)
+                hist = pm.histogram_sharded(out_rows, m)
+            ms = time_events(lambda: pm.develop_spatial_sharded(
+                planes, params, masks, m, use_kernel=True), reps=10)
+            twins_dev = dict(twins)
+        editor = fused.develop_post_geo_fused(planes, params, masks, **flags)
+        check(torch.equal(pm.gather_rows(out_rows, m), editor),
+              "develop_spatial_sharded(use_kernel=True) differs from the editor's "
+              "kernel render")
+        check(torch.equal(hist, histogram_rgbl(editor)),
+              "histogram_sharded (NCCL all_reduce) differs from histogram_rgbl")
+        hb, wb = BUCKET_HW
+        log(f"phase 12a: develop_spatial_sharded(use_kernel=True) {wb}x{hb} M=4 == "
+            f"the editor's kernel render bit for bit, {ms:.4f} ms by CUDA events; "
+            f"histogram_sharded (NCCL all_reduce) == histogram_rgbl [{card}]")
+        del planes, masks, editor, out_rows
+
+        qlum, qchr = jpegenc._quant_tables(JPEG_QUALITY)
+        tone, _, _ = raw_edits()
+        rng = np.random.default_rng(SEED + 12)
+        with counted_twins() as twins:
+            for pattern, (h, w) in (("RGGB", BAYER_HW), ("XTRANS", XTRANS_HW)):
+                mosaic = torch.from_numpy(rng.random((h, w), dtype=np.float32)).to(dev)
+                args = raw_args(dev, mosaic, tone)
+                with acc.step():
+                    words, totals = pm.export_batch_raw_fused_packed_step(
+                        mosaic[None], *args[1:], m, qlum, qchr, pattern=pattern)
+                step_ms = time_events(lambda: pm.export_batch_raw_fused_packed_step(
+                    mosaic[None], *args[1:], m, qlum, qchr, pattern=pattern), reps=5)
+                s_words, s_totals = jpegbits.wire_packed(
+                    raw_develop_fused(*args, pattern=pattern), qlum, qchr)
+                check(torch.equal(words[0], s_words) and torch.equal(totals[0], s_totals),
+                      f"the mesh RAW step's {pattern} scan differs from the "
+                      "single-device packed wire")
+                log(f"phase 12a: export_batch_raw_fused_packed_step {pattern} {w}x{h}: "
+                    f"scan ({int(totals[0, 0])} words) == the single-device packed "
+                    f"wire's; {step_ms:.4f} ms by CUDA events (RAW kernel + JPEG "
+                    f"wire) [{card}]")
+                del mosaic, words, s_words
+            twins_raw = dict(twins)
+        for name, calls in (("batch", twins_batch), ("develop", twins_dev),
+                            ("RAW step", twins_raw)):
+            check(not calls, f"twins ran on phase 12a's {name}: {calls}")
+    finally:
+        dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    return acc.total
+
+
+def mesh_rank(rank, world, init, out_path, dng_dir, out_dir, device, backend):
+    """Phase 12b: one rank (spawned; imports neither jax nor a test
+    module): a gloo rank on the shared card, or (``--mesh-cards``) an NCCL
+    rank on its own card. Writes (status, results) to ``out_path``."""
+    import pickle
+    import traceback
+
+    import torch
+    import torch.distributed as dist
+
+    from rawphotoforge_tpu_torch.kernels import fused
+    from rawphotoforge_tpu_torch.ops import demosaic as dm
+    from rawphotoforge_tpu_torch.ops.develop import geometry_stage
+    from rawphotoforge_tpu_torch.ops.sharpen import unsharp_mask
+    from rawphotoforge_tpu_torch.ops.stats import histogram_rgbl
+    from rawphotoforge_tpu_torch.parallel import mesh as pm, spatial
+
+    dev = torch.device(device)
+    torch.cuda.set_device(dev)
+    os.environ["LOCAL_RANK"] = str(rank)  # as torchrun sets it
+    res = {"ms": {}, "checks": {}}
+    halo = {"ms": 0.0, "bytes": 0, "calls": 0}  # the current step's exchanges
+    real_p2p = spatial._p2p
+
+    def timed_p2p(mesh, sends, recvs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = real_p2p(mesh, sends, recvs)
+        halo["ms"] += (time.perf_counter() - t0) * 1e3
+        halo["bytes"] += sum(t.numel() * t.element_size() for t, _ in sends)
+        halo["calls"] += 1
+        return got
+
+    def device_ms(fn):
+        """fn's result, its CUDA-event ms, host ms, and the host ms, bytes
+        and count of the halo exchanges inside it."""
+        torch.cuda.synchronize()
+        halo.update(ms=0.0, bytes=0, calls=0)
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        t0 = time.perf_counter()
+        ev[0].record()
+        out = fn()
+        ev[1].record()
+        torch.cuda.synchronize()
+        return out, (ev[0].elapsed_time(ev[1]), (time.perf_counter() - t0) * 1e3,
+                     halo["ms"], halo["bytes"], halo["calls"])
+
+    def timed(name, step):
+        """Runs ``step`` twice; keeps the first call's output and both
+        calls' times (cold, warm) under ``name``. The first call is the
+        path's: its launches count."""
+        with acc.step():
+            out, cold = device_ms(step)
+        res["ms"][name] = (cold, device_ms(step)[1])
+        return out
+
+    try:
+        dist.init_process_group(backend, init_method=f"file://{init}", rank=rank,
+                                world_size=world, timeout=datetime.timedelta(seconds=300))
+        spatial._p2p = timed_p2p
+        acc = PathLaunches()
+        m = pm.make_mesh(1, world, devices=dev)  # every rank on 'sp'
+        with counted_twins() as twins:
+            planes, params, masks, _ = m4_session(dev, distortion=35)
+            h = planes.shape[1]
+            blk, mblk = pm.shard_rows(planes, m), pm.shard_rows(masks, m)
+            ext = params.extent
+            rows = timed("develop_spatial_sharded(use_kernel=True), distortion 35",
+                         lambda: pm.develop_spatial_sharded(
+                             blk, params, mblk, m, use_kernel=True, h=h))
+            geo_rows = spatial.distortion_sharded(blk, params.distortion, m,
+                                                  extent=ext, h=h)
+            geo, out = pm.gather_rows(geo_rows, m), pm.gather_rows(rows, m)
+            hist = pm.histogram_sharded(rows, m)
+            if rank == 0:
+                one = geometry_stage(planes, 35.0, ext)
+                res["checks"]["warp max abs err"] = float((geo - one).abs().max())
+                res["checks"]["kernel == single-slab kernel"] = bool(torch.equal(
+                    out, fused.develop_post_geo_fused(geo, params, masks)))
+                res["checks"]["histogram exact"] = bool(torch.equal(
+                    hist, histogram_rgbl(out)))
+            del planes, masks, blk, mblk, rows, geo_rows, geo, out
+
+            rng = np.random.default_rng(SEED + 13)
+            mosaic = torch.from_numpy(rng.random(BAYER_HW, dtype=np.float32)).to(dev)
+            mrows = pm.shard_rows(mosaic, m)
+            wb, cam, amount = (1.9, 1.0, 1.5), raw_cam(), 0.6
+            rgb = timed("demosaic_sharded",
+                        lambda: spatial.demosaic_sharded(mrows, m, "RGGB"))
+            raw_rows = timed("raw_develop_sharded", lambda: spatial.raw_develop_sharded(
+                mrows, wb, cam, m, "RGGB", amount))
+            rgb, raw_out = pm.gather_rows(rgb, m), pm.gather_rows(raw_rows, m)
+            if rank == 0:
+                res["checks"]["demosaic bit for bit"] = bool(torch.equal(
+                    rgb, dm.demosaic_malvar(mosaic, "RGGB")))
+                single = unsharp_mask(torch.clamp(dm.camera_to_srgb(dm.demosaic_malvar(
+                    dm.apply_wb_mosaic(mosaic, "RGGB", wb), "RGGB"), cam), 0.0, 1.0),
+                    amount)
+                res["checks"]["raw_develop_sharded max abs err"] = float(
+                    (raw_out - single).abs().max())
+            del mosaic, mrows, rgb, raw_rows, raw_out
+            torch.cuda.empty_cache()
+
+            paths = sorted(os.path.join(dng_dir, n) for n in os.listdir(dng_dir))
+            with acc.step():
+                # An NCCL rank names no card: each takes cuda:LOCAL_RANK.
+                rc, text, wall = mesh_batch(paths, out_dir,
+                                            "cuda" if backend == "nccl" else dev)
+            res["batch"] = (rc, text, wall)
+        res["launches"] = acc.total
+        res["twins"] = dict(twins)
+        dist.barrier()
+        status = ("ok", res)
+    except BaseException:  # noqa: BLE001 - reported to the parent
+        status = ("error", traceback.format_exc())
+    finally:
+        spatial._p2p = real_p2p
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    with open(out_path, "wb") as f:
+        pickle.dump(status, f)
+
+
+def phase_mesh_two(dev, card, log, tmp, dng_dir, single_dir, backend="gloo",
+                   devices=None, tag="phase 12b"):
+    """Phase 12b: two gloo ranks (spawned processes) on the one card; or
+    with ``backend`` "nccl" and ``devices`` one rank a card."""
+    import multiprocessing
+    import pickle
+
+    devices = devices or [str(dev)] * MESH_RANKS
+    ranks = len(devices)
+    ctx = multiprocessing.get_context("spawn")
+    init = os.path.join(tmp, f"rendezvous_{backend}")
+    out_dir = os.path.join(tmp, f"mesh_out_{backend}")
+    procs = [ctx.Process(target=mesh_rank, args=(r, ranks, init,
+                                                 os.path.join(tmp, f"{backend}{r}.pkl"),
+                                                 dng_dir, out_dir, devices[r], backend))
+             for r in range(ranks)]
+    t0 = time.perf_counter()
+    for p in procs:
+        p.start()
+    end = time.monotonic() + MESH_DEADLINE_S
+    for p in procs:
+        p.join(max(0.0, end - time.monotonic()))
+    hung = [r for r, p in enumerate(procs) if p.is_alive()]
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+            p.join()
+    check(not hung, f"{tag}: ranks {hung} still running after {MESH_DEADLINE_S} s")
+    results = []
+    for r in range(ranks):
+        path = os.path.join(tmp, f"{backend}{r}.pkl")
+        check(os.path.exists(path), f"{tag}: rank {r} exited with "
+              f"{procs[r].exitcode} and no result")
+        with open(path, "rb") as f:
+            status, value = pickle.load(f)
+        check(status == "ok", f"{tag}: rank {r} failed:\n{value}")
+        results.append(value)
+    wall = time.perf_counter() - t0
+    r0 = results[0]
+    c = r0["checks"]
+    h = BUCKET_HW[0]
+    check(c["kernel == single-slab kernel"], f"{tag}: the sharded develop kernel "
+          "differs from the single-slab kernel on the gathered geometry")
+    check(c["warp max abs err"] <= WARP_TOL_PER_ROW * h,
+          f"{tag}: the sharded warp is {c['warp max abs err']} off the single warp")
+    check(c["demosaic bit for bit"], f"{tag}: demosaic_sharded differs")
+    check(c["raw_develop_sharded max abs err"] <= RAW_SHARDED_TOL,
+          f"{tag}: raw_develop_sharded {c['raw_develop_sharded max abs err']} off")
+    check(c["histogram exact"], f"{tag}: histogram_sharded differs")
+    for r, res in enumerate(results):
+        check(not res["twins"], f"{tag}: twins ran on rank {r}: {res['twins']}")
+        check(res["batch"][0] == 0, f"{tag}: rank {r}'s mesh batch exited "
+              f"{res['batch'][0]}")
+    names = same_files(out_dir, single_dir)
+    rate = [ln for ln in r0["batch"][1].splitlines() if "MPix/s" in ln][0].strip()
+    where = "on one card" if len(set(devices)) == 1 else "one a card"
+    log(f"{tag}: {ranks} {backend} ranks {where}, 'sp' = {ranks}, "
+        f"{BUCKET_HW[1]}x{h}: develop_spatial_sharded(use_kernel=True, distortion 35) "
+        f"== the single-slab kernel on the gathered geometry bit for bit; warp max "
+        f"abs err {c['warp max abs err']:.3g} (bound {WARP_TOL_PER_ROW * h:.3g} = "
+        f"5e-5 x {h}/64); demosaic_sharded bit for bit; raw_develop_sharded max abs "
+        f"err {c['raw_develop_sharded max abs err']:.3g} (bound {RAW_SHARDED_TOL}); "
+        f"histogram_sharded exact")
+    for r, res in enumerate(results):
+        steps = "; ".join(
+            f"{k} {ev:.3f} by CUDA events, {hst:.1f} host, of it {n} halo "
+            f"exchanges {hms:.1f} host ({nb / 1e6:.3f} MB sent) [first call "
+            f"{cold[0]:.3f} / {cold[1]:.1f} / {cold[2]:.1f}]"
+            for k, (cold, (ev, hst, hms, nb, n)) in res["ms"].items())
+        log(f"{tag}: rank {r}, warm (second call) ms: {steps} [{card}]")
+    log(f"{tag}: mesh batch over {ranks} ranks: {rate}; {len(names)} files "
+        f"== `batch --no-mesh --exact-path` byte for byte; rank walls "
+        + ", ".join(f"{res['batch'][2] * 1e3:.1f}" for res in results)
+        + f" ms; {tag} {wall:.1f} s [{card}]")
+    total = {}
+    for res in results:
+        for k, v in res["launches"].items():
+            total[k] = total.get(k, 0) + v
+    return total
+
+
+def transfer_times(dev, card, log):
+    """utils/transfer against plain torch copies, host clock (median of 5,
+    each call synchronized): put_np vs torch.from_numpy(a).to(dev) for a
+    24 MP u16 mosaic (as its i16 bits), 24 MP u8 planes (a JPEG's) and 24 MP
+    f32 planes, fetch_np vs
+    .cpu() for a 24 MP JPEG scan's bytes and the 24 MP f32 render."""
+    import torch
+
+    from rawphotoforge_tpu_torch.utils.transfer import fetch_np, put_np
+
+    def med(fn):
+        ts = []
+        for _ in range(6):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            ts.append((time.perf_counter() - t0) * 1e3)
+        return float(np.median(ts[1:]))
+
+    rng = np.random.default_rng(SEED + 14)
+    h, w = BAYER_HW
+    parts = []
+    for name, arr in (("u16 mosaic", rng.integers(0, 65535, (h, w), dtype=np.uint16)
+                       .view(np.int16)),
+                      ("u8 planes", rng.integers(0, 255, (3, h, w), dtype=np.uint8)),
+                      ("f32 planes", rng.random((3, h, w), dtype=np.float32))):
+        ours = med(lambda: put_np(arr, device=dev))
+        plain = med(lambda: torch.from_numpy(arr).to(dev))
+        check(torch.equal(put_np(arr, device=dev).cpu(), torch.from_numpy(arr)),
+              f"put_np changed the {name}")
+        parts.append(f"upload {name} {arr.nbytes / 1e6:.1f} MB: put_np {ours:.2f} ms, "
+                     f"torch .to() {plain:.2f} ms")
+    for name, n in (("scan words", 14_484_000 // 4), ("f32 render", 3 * h * w)):
+        t = torch.rand(n, device=dev)
+        ours = med(lambda: fetch_np(t))
+        plain = med(lambda: t.cpu().numpy())
+        check(np.array_equal(fetch_np(t), t.cpu().numpy()), f"fetch_np changed the {name}")
+        parts.append(f"fetch {name} {4 * n / 1e6:.1f} MB: fetch_np {ours:.2f} ms, "
+                     f".cpu() {plain:.2f} ms")
+        del t
+    log("phase 12: transfers (host clock, median of 5): " + "; ".join(parts)
+        + f" [{card}]")
+
+
+def phase_mesh(dev, card, log):
+    """Phase 12: the multi-device layer (parallel/mesh, parallel/spatial,
+    `cli batch`'s mesh path) on the card: a world of one over NCCL here,
+    then two gloo ranks in spawned processes."""
+    import torch
+
+    transfer_times(dev, card, log)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
+    try:
+        dng_dir = write_mesh_dngs(tmp, log)
+        t0 = time.perf_counter()
+        one = phase_mesh_one(dev, card, log, tmp, dng_dir)
+        log(f"phase 12a: {time.perf_counter() - t0:.1f} s; launches {one}")
+        torch.cuda.empty_cache()
+        two = phase_mesh_two(dev, card, log, tmp, dng_dir,
+                             os.path.join(tmp, "single_out"))
+        log(f"phase 12b: launches (both ranks) {two}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    launches = {k: one.get(k, 0) + two.get(k, 0) for k in set(one) | set(two)}
+    for k in ("develop", "bayer_kernel", "xtrans_kernel", "jpeg_blocks_kernel",
+              "jpeg_huffman_kernel", "jpeg_pack_kernel"):
+        check(launches.get(k, 0) > 0, f"phase 12 never launched {k}")
+    log(f"phase 12: launches {launches}; twin calls 0")
+    return launches
+
+
+def _cli_lines(cmd, timeout):
+    """Runs a CLI command line from the repository's root; (rc, stdout,
+    stderr, host s)."""
+    t0 = time.perf_counter()
+    p = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=timeout)
+    return p.returncode, p.stdout, p.stderr, time.perf_counter() - t0
+
+
+def mesh_cards(dev, card, log):
+    """--mesh-cards, on a host with several cards: phase 12b's checks over
+    NCCL, one rank a card and every rank on 'sp' (halos card to card, the
+    histogram's all_reduce); then `cli batch` of the four DNGs as a user
+    runs it: with no --device (it spawns one NCCL rank a card), under
+    torchrun with --device cuda, and under torchrun with --device cuda:1,
+    which each rank refuses. Every mesh batch's files equal those of
+    `--no-mesh --exact-path`; the one-card loops' rates are printed beside
+    the mesh's."""
+    import torch
+
+    from rawphotoforge_tpu_torch.app import cli
+
+    n = torch.cuda.device_count()
+    check(n >= 2, f"--mesh-cards needs several cards, this host shows {n}")
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_cards_")
+    try:
+        dng_dir = write_mesh_dngs(tmp, log)
+        rates = {}
+        for name, flags in (("exact", ["--no-mesh", "--exact-path"]),
+                            ("fused", ["--no-mesh"]), ("fused warm", ["--no-mesh"])):
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                rc = cli.main(["batch", dng_dir, os.path.join(tmp, name.replace(" ", "_")),
+                               *flags, *RAW_FLAGS, "--device", str(dev)])
+            check(rc == 0, f"--mesh-cards: the one-card loop {flags} exited {rc}")
+            rates[name] = [ln for ln in buf.getvalue().splitlines() if "MPix/s" in ln][0]
+        single = os.path.join(tmp, "exact")
+        log(f"cards: one card, `--no-mesh --exact-path`: {rates['exact'].strip()}; "
+            f"`--no-mesh` (fused RAW loop, warm): {rates['fused warm'].strip()} [{card}]")
+        launches = phase_mesh_two(dev, card, log, tmp, dng_dir, single, backend="nccl",
+                                  devices=[f"cuda:{r}" for r in range(n)], tag="cards")
+        log(f"cards: launches ({n} NCCL ranks) {launches}")
+        cli_cmd = [sys.executable, "-m", "rawphotoforge_tpu_torch.app.cli", "batch",
+                   dng_dir]
+        run = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+               f"--nproc-per-node={n}", "-m", "rawphotoforge_tpu_torch.app.cli",
+               "batch", dng_dir]
+        for name, cmd in (("spawned", [*cli_cmd, os.path.join(tmp, "spawned"), *RAW_FLAGS]),
+                          ("torchrun", [*run, os.path.join(tmp, "torchrun"), *RAW_FLAGS,
+                                        "--device", "cuda"])):
+            rc, out, err, wall = _cli_lines(cmd, 300)
+            check(rc == 0 and f"batch (mesh x{n})" in out,
+                  f"cards: `cli batch` ({name}) exited {rc}:\n{out[-2000:]}\n{err[-4000:]}")
+            names = same_files(os.path.join(tmp, name), single)
+            rate = [ln for ln in out.splitlines() if "MPix/s" in ln][0].strip()
+            log(f"cards: `cli batch` {name} ({n} NCCL ranks): {rate}; {len(names)} "
+                f"files == `--no-mesh --exact-path` byte for byte; process wall "
+                f"{wall:.1f} s [{card}]")
+        rc, out, err, _ = _cli_lines([*run, os.path.join(tmp, "one_card"), *RAW_FLAGS,
+                                      "--device", "cuda:1"], 300)
+        check(rc != 0 and "names one card" in err,
+              f"cards: torchrun with --device cuda:1 exited {rc}:\n{err[-2000:]}")
+        check(not os.listdir(os.path.join(tmp, "one_card")),
+              "cards: the refused batch wrote files")
+        log(f"cards: torchrun with --device cuda:1: every rank refused it (exit {rc}), "
+            "no files")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def median_time(fn, windows=5, reps=20):
     """The median over ``windows`` CUDA-event windows of ``reps`` launches."""
     return sorted(time_events(fn, reps=reps) for _ in range(windows))[windows // 2]
@@ -2602,6 +3211,9 @@ def main() -> int:
     if "--bayer-ab" in sys.argv:
         bayer_ab(dev, card, log)
         return 0
+    if "--mesh-cards" in sys.argv:
+        mesh_cards(dev, card, log)
+        return 0
     phase_device_functions(dev, log)
     worst = phase_kernel_vs_twin(dev, log)
     ed, launches, _ = phase_main_path(dev, log)
@@ -2622,17 +3234,19 @@ def main() -> int:
     server_launches = phase_server(dev, card, log, os.path.join(raw_dir, "bayer24.dng"))
     shutil.rmtree(raw_tmp, ignore_errors=True)
     shutil.rmtree(vendor_tmp, ignore_errors=True)
+    mesh_launches = phase_mesh(dev, card, log)
     # Each kernel's launches, summed over the main paths that drive it (each
     # counted from zero just before its path and read just after).
     log(f"launches by path: develop frame {launches}, RAW batch {batch_launches}, "
         f"vendor path {vendor_launches}, masks and exports {mask_launches}, "
-        f"server {server_launches}")
+        f"server {server_launches}, multi-device {mesh_launches}")
     launches += (vendor_launches["develop"] + mask_launches["develop"]
-                 + server_launches["develop"])
+                 + server_launches["develop"] + mesh_launches["develop"])
     for k in batch_launches:
         batch_launches[k] += (vendor_launches[k] + mask_launches[k]
-                              + server_launches.get(k, 0))
-    mask_launches["geodesic_sweep_kernel"] += server_launches["geodesic_sweep_kernel"]
+                              + server_launches.get(k, 0) + mesh_launches.get(k, 0))
+    mask_launches["geodesic_sweep_kernel"] += (server_launches["geodesic_sweep_kernel"]
+                                               + mesh_launches.get("geodesic_sweep_kernel", 0))
     for k in ("bayer_kernel", "xtrans_kernel"):
         raw_worst[k.split("_")[0]] = max(raw_worst[k.split("_")[0]], vendor_worst[k])
 

@@ -19,4 +19,5 @@ from .core.params import (  # noqa: F401
     pack_params,
 )
 from .core.curve import CURVE_RESOLUTION  # noqa: F401
+from .ops.develop import develop, develop_batch  # noqa: F401
 from .engine.editor import PhotoEditor  # noqa: F401

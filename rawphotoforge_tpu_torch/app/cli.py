@@ -20,6 +20,13 @@ Usage:
 LinearRaw DNG (``PhotoEditor.save_hdr_dng``). ``convert`` and ``devices``
 are host commands; ``info`` decodes the image on ``--device``.
 
+``batch`` with more than one rank — run under ``torchrun`` (one process a
+card), or on a host that shows several cards (it then spawns one rank a
+card) — shards the images over the ranks (``_batch_mesh_path``), unless
+``--no-mesh``, ``--preset`` or ``--crop`` is given:
+
+  torchrun --nproc-per-node N -m rawphotoforge_tpu_torch.app.cli batch IN OUT
+
 ``batch`` of a directory of RAW files (DNG, CR2, ARW, RW2, RAF, ...)
 develops each one through the one-pass RAW kernel (``kernels/raw_pipeline``)
 — a DNG with OpcodeList3 warps through demosaic, warp and the develop
@@ -39,6 +46,7 @@ says otherwise (``--device cpu`` for the CPU); ``info`` on the card unless
 from __future__ import annotations
 
 import argparse
+import datetime
 import glob
 import os
 import sys
@@ -46,12 +54,18 @@ import time
 
 import numpy as np
 
-from .._device import resolve_device, synchronize
+from .._device import resolve_device
 from .._errbase import PhotoEditorError
 from ..core.params import (BRIGHTNESS, HUE, SATURATION, LIGHTNESS,
                            EditParameters, pack_params)
 from ..engine.editor import FULL, PhotoEditor
 from ..io import image_io
+from ..utils.profiling import fetch_sync
+
+
+# How long a rank of a multi-rank batch waits for its peers (the
+# rendezvous, each collective).
+_WORLD_TIMEOUT = datetime.timedelta(seconds=600)
 
 
 def _parse_curve(spec: str):
@@ -247,8 +261,7 @@ def cmd_develop(args) -> int:
         print(f"lens profile: {_lens_note(ed)}")
     _apply_edit_flags(ed, args)
     t1 = time.perf_counter()
-    ed.apply(FULL, cropped=False)
-    synchronize(ed.device)
+    fetch_sync(ed.apply(FULL, cropped=False))
     t_dev = time.perf_counter() - t1
     if hdr_out:
         ed.save_hdr_dng(args.output)
@@ -440,8 +453,20 @@ def _batch_raw_fast_path(paths, args) -> int:
 
 
 def cmd_batch(args) -> int:
+    import torch.distributed as dist
+
     from ..io.raw import is_raw_image
 
+    if (dist.is_available() and not dist.is_initialized()
+            and int(os.environ.get("WORLD_SIZE", "1")) > 1):
+        # Under torchrun: join its world for this batch (nccl on the cards,
+        # gloo with --device cpu) and leave it after.
+        dist.init_process_group(_world_backend(args.device), init_method="env://",
+                                timeout=_WORLD_TIMEOUT)
+        try:
+            return cmd_batch(args)
+        finally:
+            dist.destroy_process_group()
     if args.bit_depth != 8:
         print("batch exports JPEG; --bit-depth 16 is develop-only "
               "(use develop with a .png output)", file=sys.stderr)
@@ -453,8 +478,24 @@ def cmd_batch(args) -> int:
     if not paths:
         print(f"no images found in {args.input_dir}", file=sys.stderr)
         return 1
-    args.device = _session_device(args)
     os.makedirs(args.output_dir, exist_ok=True)
+    # More than one rank: shard the batch over them (SURVEY §2.6). Presets
+    # (they can add masks and crops the shared-edit step does not model)
+    # and --crop stay on the single-device loop, as in the JAX package.
+    mesh_ok = not args.no_mesh and not args.preset and not args.crop
+    world = dist.get_world_size() if dist.is_available() and dist.is_initialized() else 1
+    if world > 1:
+        if mesh_ok:
+            return _batch_mesh_path(paths, args)
+        if dist.get_rank() != 0:
+            return 0  # rank 0 runs the single-device loop
+    elif mesh_ok and args.device in (None, "cuda"):
+        import torch
+
+        n = torch.cuda.device_count() if torch.cuda.is_available() else 0
+        if n > 1:
+            return _spawn_mesh_batch(paths, args, n)
+    args.device = _session_device(args)
 
     # The one-pass RAW kernel has no lens-distortion (geometry) stage and
     # no profile-correction stage: with --lens-distortion or --lens-correct
@@ -483,6 +524,171 @@ def cmd_batch(args) -> int:
     print(f"batch: {len(paths)} images, {total_pix / 1e6:.4g} MPix in "
           f"{dt:.1f} s ({total_pix / 1e6 / dt:.4g} MPix/s end-to-end)")
     return 0
+
+
+def _batch_mesh_path(paths, args) -> int:
+    """The batch sharded over the ranks of the default process group (one
+    process a card; SURVEY §2.6's batch data parallelism).
+
+    Every rank runs this. Image i belongs to rank i % N (the 'batch' axis of
+    ``parallel/mesh.make_mesh``), which opens it on its own device (decode,
+    demosaic, geometry and sharpen in the editor) and runs the editor's
+    render -> encode tail (``export_batch_editor_packed_step``: the
+    exact-LUT anchor ``develop_post_geo`` and the packed JPEG wire). The
+    output names come from the whole sorted list on every rank, and each
+    file is written once, by its owner. Rank 0 prints one line per image in
+    input order and the summary.
+
+    The files equal the single-device loop's (``--no-mesh --exact-path``)
+    byte for byte: the same planes, the same anchor program, integer math
+    after the u8-grid round. An image whose packed wire refuses its data
+    (``JpegWireDataError``) takes the editor's own export chain instead
+    (``save_bytes("JPEG")``). A failure on one rank is reported by rank 0
+    after every rank has finished; every rank then returns 2."""
+    import traceback
+
+    import torch
+    import torch.distributed as dist
+
+    from .. import native
+    from .._errbase import JpegWireDataError
+    from ..io import jpegbits, jpegenc
+    from ..parallel import mesh as pmesh
+
+    msh = pmesh.make_mesh(devices=_mesh_devices(args.device, dist.get_world_size(),
+                                                dist.get_backend()))
+    if msh.device.type == "cuda":
+        torch.cuda.set_device(msh.device)  # nccl's object collectives
+    nb = msh.shape["batch"]
+    qlum, qchr = jpegenc._quant_tables(args.quality)
+    t0 = time.perf_counter()
+    taken: set = set()
+    outs = [_batch_out_name(p, args.output_dir, taken) for p in paths]
+    done, error = [], None
+    try:
+        for i in range(msh.batch_index, len(paths), nb):
+            # use_kernel=False: the step renders on the exact-LUT anchor, so
+            # the packed params must carry the built LUTs, and the fallback
+            # renders on the same path.
+            ed = PhotoEditor.open(paths[i], use_kernel=False,
+                                  lens_correct=args.lens_correct,
+                                  lens_db_paths=args.lens_db, device=msh.device)
+            _apply_edit_flags(ed, args)
+            th, tw = ed.shape
+            words, totals = pmesh.export_batch_editor_packed_step(
+                ed._geo_at(FULL)[None], ed._packed_params(FULL), msh, qlum,
+                qchr, (th, tw))
+            nw, nbits, bad = totals[0].tolist()
+            try:
+                jpegbits._check_totals(nw, nbits, bad,
+                                       6 * -(-th // 16) * -(-tw // 16), packed=True)
+                body = native.jpeg_encode_packed(
+                    jpegbits.fetch_scan(words[0], nw), nbits, th, tw,
+                    quality=args.quality)
+                exif_b = ed.export_exif_bytes()
+                if exif_b:
+                    body = jpegenc._splice_app1(body, exif_b)
+            except JpegWireDataError:
+                body = ed.save_bytes("JPEG", quality=args.quality)
+            with open(outs[i], "wb") as f:
+                f.write(body)
+            note = f"  [lens: {_lens_note(ed)}]" if args.lens_correct else ""
+            done.append((i, f"  {paths[i]} -> {outs[i]}{note}", th * tw))
+    except Exception as e:  # noqa: BLE001 - the other ranks wait at the gather
+        traceback.print_exc()
+        error = f"rank {msh.rank}: {type(e).__name__}: {e}"
+    gathered = [None] * dist.get_world_size()
+    dist.all_gather_object(gathered, (done, error))
+    errors = [e for _, e in gathered if e]
+    if dist.get_rank() == 0:
+        if errors:
+            print("error: " + "; ".join(errors), file=sys.stderr)
+        else:
+            rows = sorted(r for d, _ in gathered for r in d)
+            for _, line, _ in rows:
+                print(line)
+            total_pix = sum(px for _, _, px in rows)
+            dt = time.perf_counter() - t0
+            print(f"batch (mesh x{nb}): {len(paths)} images, "
+                  f"{total_pix / 1e6:.4g} MPix in {dt:.1f} s "
+                  f"({total_pix / 1e6 / dt:.4g} MPix/s end-to-end)")
+    return 2 if errors else 0
+
+
+def _mesh_devices(device, world: int, backend: str):
+    """``make_mesh``'s ``devices`` for a ``--device``: None or "cuda" give
+    each rank the card ``LOCAL_RANK`` names, "cpu" stays, and so does one
+    named card ("cuda:0"), which gloo ranks may share; NCCL takes one rank
+    a card, so there a named card is refused in a world of several ranks."""
+    import torch
+
+    if device is None:
+        return None
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        return device
+    if dev.index is None:
+        return None
+    if world > 1 and backend == "nccl":
+        raise PhotoEditorError(
+            f"--device {device} names one card, but each of the {world} ranks "
+            "needs its own: pass --device cuda (rank r takes cuda:LOCAL_RANK) "
+            "or choose the cards with CUDA_VISIBLE_DEVICES")
+    return device
+
+
+def _mesh_rank_main(rank, world, init_file, paths, args):
+    """One spawned rank of ``_spawn_mesh_batch``."""
+    import torch
+    import torch.distributed as dist
+
+    os.environ["LOCAL_RANK"] = str(rank)
+    backend = _world_backend(args.device)
+    if backend == "gloo":
+        # CPU ranks share the host's cores: one intra-op thread each, as
+        # torchrun gives its workers.
+        torch.set_num_threads(1)
+    dist.init_process_group(backend, init_method=f"file://{init_file}",
+                            rank=rank, world_size=world, timeout=_WORLD_TIMEOUT)
+    try:
+        rc = _batch_mesh_path(paths, args)
+    finally:
+        dist.destroy_process_group()
+    sys.exit(rc)
+
+
+def _world_backend(device) -> str:
+    """The process group's backend for a ``--device``: ``gloo`` for the
+    CPU, ``nccl`` for the cards."""
+    return "gloo" if device is not None and str(device).startswith("cpu") else "nccl"
+
+
+def _spawn_mesh_batch(paths, args, world: int) -> int:
+    """Run ``_batch_mesh_path`` in ``world`` spawned ranks (one a card over
+    ``nccl``, or CPU ranks over ``gloo`` with ``--device cpu``) that meet
+    through a file in a temporary directory. Returns 0 when every rank did."""
+    import multiprocessing
+    import tempfile
+
+    if _world_backend(args.device) == "nccl":
+        # Build the kernels and the native library once, here: ranks
+        # building at once would race for the same files.
+        from .. import native
+        from ..kernels import jpeg_wire
+
+        native.library()
+        jpeg_wire.library()
+    ctx = multiprocessing.get_context("spawn")
+    with tempfile.TemporaryDirectory() as tmp:
+        init = os.path.join(tmp, "rendezvous")
+        procs = [ctx.Process(target=_mesh_rank_main,
+                             args=(r, world, init, paths, args))
+                 for r in range(world)]
+        for p in procs:
+            p.start()
+        for p in procs:
+            p.join()
+    return 0 if all(p.exitcode == 0 for p in procs) else 2
 
 
 def cmd_convert(args) -> int:
@@ -551,7 +757,7 @@ def cmd_serve(args) -> int:
         + (["--device", args.device] if args.device else []))
 
 
-def main(argv=None) -> int:
+def _parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(prog="rawphotoforge-tpu-torch")
     sub = ap.add_subparsers(dest="cmd", required=True)
     p_info = sub.add_parser("info", help="print image dims + EXIF")
@@ -577,8 +783,9 @@ def main(argv=None) -> int:
     p_batch.add_argument("input_dir")
     p_batch.add_argument("output_dir")
     p_batch.add_argument("--no-mesh", action="store_true",
-                         help="the single-device loop (the only one the port "
-                              "has so far)")
+                         help="stay on the single-device loop even with more "
+                              "than one rank (a torchrun world, or several "
+                              "cards)")
     _add_edit_flags(p_batch)
     p_batch.set_defaults(fn=cmd_batch)
     p_cv = sub.add_parser("convert", help="transcode a RAW to a compressed DNG")
@@ -615,7 +822,11 @@ def main(argv=None) -> int:
                        help="torch device of the sessions (default: the card "
                             "the settings' device_index names)")
     p_srv.set_defaults(fn=cmd_serve)
-    args = ap.parse_args(argv)
+    return ap
+
+
+def main(argv=None) -> int:
+    args = _parser().parse_args(argv)
     try:
         return args.fn(args)
     except (PhotoEditorError, FileNotFoundError) as e:

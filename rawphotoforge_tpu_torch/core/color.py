@@ -122,3 +122,22 @@ def oklch_to_linear_srgb(L, C, h, sincos_turns=_sincos_turns):
 def luma(r, g, b):
     """Rec.709 relative luminance of linear RGB (wgpu_shader.wgsl:218)."""
     return LUMA_R * r + LUMA_G * g + LUMA_B * b
+
+
+def apply_gamma(x: torch.Tensor, gamma=(2.222, 4.5 / 255.0)) -> torch.Tensor:
+    """v1's rawpy-style display gamma (python-legacy editor.py:47-76), as
+    the JAX package's ``apply_gamma``: clip to [0, 1]; below
+    ``threshold = (c/(g-1))**g`` the linear segment ``x * c/(g-1)``, above
+    it ``(1+c) * x**(1/g) - c``, with the reference's quirk of dividing the
+    slope argument by 255 once more (the default's effective c is
+    4.5/255/255). Not used by the v4 develop contract (sRGB,
+    ``linear_to_srgb``); kept for v1-workflow compatibility."""
+    g, c = gamma
+    c = c / 255.0
+    x = torch.clamp(x, 0.0, 1.0)
+    threshold = (c / (g - 1.0)) ** g
+    return torch.where(
+        x < threshold,
+        x * (c / (g - 1.0)),
+        (1.0 + c) * torch.pow(x, 1.0 / g) - c,
+    ).to(torch.float32)

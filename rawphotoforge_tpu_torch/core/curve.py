@@ -14,7 +14,8 @@ Two forms:
   ``ops/develop.develop_post_geo``.
 * ``pchip_coeffs`` — per-segment monomial coefficients padded to a static
   segment count, evaluated per pixel by the develop kernel
-  (``kernels/fused``) by segment selection + Horner.
+  (``kernels/fused``) by segment selection + Horner; ``eval_packed`` is
+  that evaluation on torch tensors.
 
 Every function here is bit-identical to its JAX-package twin (tested).
 """
@@ -22,6 +23,7 @@ Every function here is bit-identical to its JAX-package twin (tested).
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from .._errbase import PhotoEditorError
 
@@ -187,3 +189,31 @@ def lut_to_coeffs(lut: np.ndarray, max_ctrl: int = MAX_CTRL) -> tuple[np.ndarray
     xs = np.linspace(0, CURVE_RESOLUTION - 1, max_ctrl).round().astype(np.int32)
     xs = np.unique(xs)
     return pchip_coeffs(xs, lut[xs], max_ctrl=max_ctrl)
+
+
+def eval_packed(u: torch.Tensor, breaks: torch.Tensor,
+                coeffs: torch.Tensor) -> torch.Tensor:
+    """Branchless packed-PCHIP evaluation at LUT-domain positions ``u``
+    (f32, [0, 65535]); ``breaks`` f32 [S] knot positions and ``coeffs`` f32
+    [S, 4] monomial coefficients as ``pchip_coeffs`` pads them.
+
+    Per element: segment index i = (#breaks <= u) - 1 clamped to [0, S-1]
+    (row S-1 is the constant clamp row, so u >= x_last gives y_last), the
+    segment's coefficients chosen by S selects, one Horner evaluation."""
+    s = breaks.shape[0]
+    u = torch.maximum(u, breaks[0])
+    idx = torch.zeros(u.shape, dtype=torch.int32, device=u.device)
+    for j in range(1, s):
+        idx = idx + (u >= breaks[j]).to(torch.int32)
+    idx = torch.clamp(idx, max=s - 1)
+    x0 = torch.zeros_like(u)
+    a, b, c, d = (torch.zeros_like(u) for _ in range(4))
+    for j in range(s):
+        sel = idx == j
+        x0 = torch.where(sel, breaks[j], x0)
+        a = torch.where(sel, coeffs[j, 0], a)
+        b = torch.where(sel, coeffs[j, 1], b)
+        c = torch.where(sel, coeffs[j, 2], c)
+        d = torch.where(sel, coeffs[j, 3], d)
+    dt = u - x0
+    return a + dt * (b + dt * (c + dt * d))

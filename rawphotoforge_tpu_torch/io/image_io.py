@@ -347,13 +347,16 @@ def pad_to_bucket_np(arr: np.ndarray, bucket: int) -> np.ndarray:
 
 def _upload(chw: np.ndarray, scale, linearize: bool, device) -> torch.Tensor:
     """Host integer (or float) planes -> device f32 planes: the samples
-    cross at their native width and are normalized on the device (a u16
-    plane travels as its i16 bit pattern)."""
+    cross at their native width (``utils/transfer.put_np``) and are
+    normalized on the device (a u16 plane travels as its i16 bit
+    pattern)."""
+    from ..utils.transfer import put_np
+
+    chw = np.ascontiguousarray(chw)
     if chw.dtype == np.uint16:
-        t = torch.from_numpy(np.ascontiguousarray(chw).view(np.int16))
-        t = t.to(device).to(torch.int32) & 0xFFFF
+        t = put_np(chw.view(np.int16), device=device).to(torch.int32) & 0xFFFF
     else:
-        t = torch.from_numpy(np.ascontiguousarray(chw)).to(device)
+        t = put_np(chw, device=device)
     y = t.to(torch.float32)
     if scale is not None:
         # A device-tensor divisor: true division, as the JAX package

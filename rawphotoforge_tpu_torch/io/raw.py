@@ -13,7 +13,6 @@ from __future__ import annotations
 
 import dataclasses
 import os
-import warnings
 
 import numpy as np
 import torch
@@ -224,18 +223,16 @@ def cam2srgb_for(raw: RawImage) -> np.ndarray:
 
 
 def upload_mosaic(mosaic: np.ndarray, device) -> torch.Tensor:
-    """Host CFA samples -> a device tensor for ``normalize_mosaic``: a u16
-    mosaic crosses at 2 B/sample as its i16 bit pattern and widens on the
-    device; float (HDR) data crosses as f32."""
+    """Host CFA samples -> a device tensor for ``normalize_mosaic``, through
+    ``utils/transfer.put_np``: a u16 mosaic crosses at 2 B/sample as its
+    i16 bit pattern and widens on the device; float (HDR) data crosses as
+    f32."""
+    from ..utils.transfer import put_np
+
     m = np.ascontiguousarray(mosaic)
-    with warnings.catch_warnings():
-        # A mosaic parsed from file bytes is read-only; the tensor made
-        # from it is copied by the widening below and never written.
-        warnings.simplefilter("ignore", UserWarning)
-        if m.dtype == np.uint16:
-            t = torch.from_numpy(m.view(np.int16)).to(device)
-            return t.to(torch.int32) & 0xFFFF
-        return torch.from_numpy(m.astype(np.float32)).to(device)
+    if m.dtype == np.uint16:
+        return put_np(m.view(np.int16), device=device).to(torch.int32) & 0xFFFF
+    return put_np(m.astype(np.float32, copy=False), device=device)
 
 
 def normalized_mosaic(raw: RawImage, mosaic: np.ndarray, device) -> torch.Tensor:

@@ -42,30 +42,33 @@ def geometry_stage(planes: torch.Tensor, distortion, extent=None) -> torch.Tenso
     return torch.stack([r, g, b])
 
 
-def _coords(h_img, w_img, params: DevelopParams, device):
+def _coords(h_img, w_img, params: DevelopParams, device, row_offset=0):
     hf = torch.where(params.extent[0] > 0, params.extent[0],
                      torch.tensor(float(h_img), device=device))
     wf = torch.where(params.extent[1] > 0, params.extent[1],
                      torch.tensor(float(w_img), device=device))
-    ys = torch.arange(h_img, dtype=torch.int32, device=device)[:, None]
+    ys = torch.arange(h_img, dtype=torch.int32, device=device)[:, None] + row_offset
     xs = torch.arange(w_img, dtype=torch.int32, device=device)[None, :]
     return hf, wf, ys, xs
 
 
 def develop_post_geo(
-    planes: torch.Tensor, params: DevelopParams, masks: torch.Tensor | None
+    planes: torch.Tensor, params: DevelopParams, masks: torch.Tensor | None,
+    row_offset: int = 0,
 ) -> torch.Tensor:
     """Develop stack *after* lens distortion: vignette -> per-mask linear
     pass -> per-mask OKLCH pass -> sRGB encode.
 
     ``masks=None`` is the single-mask session: mask row 0 is all-ones by
     construction, so its selects are elided and no [1, H, W] ones stack is
-    ever materialized."""
+    ever materialized. ``row_offset``: global row index of the first row
+    (the vignette's coordinates) when ``planes`` is a row slab of a larger
+    image whose true extent rides in ``params.extent``."""
     r, g, b = planes[0], planes[1], planes[2]
     h_img, w_img = r.shape
     num_masks = 1 if masks is None else masks.shape[0]
 
-    hf, wf, ys, xs = _coords(h_img, w_img, params, planes.device)
+    hf, wf, ys, xs = _coords(h_img, w_img, params, planes.device, int(row_offset))
     r, g, b = pointwise.vignette(r, g, b, params.vignette, hf, wf, ys, xs)
 
     # Per-mask linear-RGB pass: WB -> tone -> brightness LUT (wgsl:279-308).
@@ -118,6 +121,14 @@ def develop(planes: torch.Tensor, params: DevelopParams,
     return develop_post_geo(
         geometry_stage(planes, params.distortion, params.extent), params, masks
     )
+
+
+def develop_batch(imgs: torch.Tensor, params: DevelopParams,
+                  masks: torch.Tensor | None) -> torch.Tensor:
+    """Batch develop: one shared edit (``params``, ``masks``) applied to each
+    image of a stack [N, 3, H, W] — the kernel of the 256-image export
+    configuration."""
+    return torch.stack([develop(img, params, masks) for img in imgs])
 
 
 def replicate_true_edges(planes: torch.Tensor, th: int, tw: int) -> torch.Tensor:

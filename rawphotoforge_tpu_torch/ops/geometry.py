@@ -13,6 +13,8 @@ outputs.
 
 from __future__ import annotations
 
+import math
+
 import torch
 
 from ..core.numerics import div
@@ -64,6 +66,27 @@ def warp_coords(ys, xs, hf, wf, strength):
     return py, px, oob
 
 
+def max_row_displacement(h: int, w: int, max_abs_distortion: float = 100.0):
+    """Static bound on |source_row - dest_row| of the warp over the slider
+    range: the halo of the row-sharded warp (``parallel/spatial``).
+
+    The vertical displacement |dv - cv| = |cv| |s| r2 / |1 + s r2| grows
+    with |cv| and r2, so the corner (|cv| = 1/2, r2 = R2max) at
+    s = +/-s_max bounds it. Returns None when the barrel model's
+    denominator can come near 0 within the range (extreme aspect ratios):
+    the caller then gathers every row."""
+    smax = 0.5 * max_abs_distortion / 100.0
+    a = w / h
+    r2max = 0.25 * (1.0 + a * a)
+    worst = 0.0
+    for s in (smax, -smax):
+        denom = 1.0 + s * r2max
+        if denom <= 0.05:
+            return None
+        worst = max(worst, abs(0.5 * s * r2max / denom))
+    return math.ceil(worst * h) + 2
+
+
 def _f32(x, device) -> torch.Tensor:
     return torch.as_tensor(x, dtype=torch.float32, device=device)
 
@@ -90,6 +113,15 @@ def lens_distortion(r, g, b, distortion, extent=None):
         wf = torch.where(ext[1] > 0, ext[1], _f32(w, dev))
     ys = torch.arange(h, dtype=torch.int32, device=dev)[:, None].expand(h, w)
     xs = torch.arange(w, dtype=torch.int32, device=dev)[None, :].expand(h, w)
+    return warp_sample((r, g, b), ys, xs, hf, wf, strength)
+
+
+def warp_sample(planes, ys, xs, hf, wf, strength, row_base: int = 0):
+    """Bilinear samples of each plane of ``planes`` (2-D, the same shape)
+    at the warp's source coordinates of destination pixels (ys, xs); pixels
+    whose source falls outside the true extent hf x wf are black. Row 0 of
+    the planes is global row ``row_base`` (a row-sharded warp samples its
+    haloed slab; the single-device warp passes 0)."""
     py, px, oob = warp_coords(ys, xs, hf, wf, strength)
     px = snap_near_integer(px)
     py = snap_near_integer(py)
@@ -104,8 +136,9 @@ def lens_distortion(r, g, b, distortion, extent=None):
     tx = px - x0f
     ty = py - y0f
     return tuple(
-        torch.where(oob, 0.0, _bilinear_gather(p, y0, y1, x0, x1, ty, tx))
-        for p in (r, g, b)
+        torch.where(oob, 0.0, _bilinear_gather(p, y0 - row_base, y1 - row_base,
+                                               x0, x1, ty, tx))
+        for p in planes
     )
 
 

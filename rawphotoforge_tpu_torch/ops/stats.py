@@ -11,6 +11,7 @@ from __future__ import annotations
 
 import torch
 
+from ..core.color import luma
 from ..core.numerics import div
 
 NUM_BINS = 256
@@ -59,3 +60,8 @@ def clipping_stats(srgb_planes: torch.Tensor) -> dict:
 def clipping_stats_rect(srgb_planes: torch.Tensor, rect) -> dict:
     """clipping_stats restricted to ``rect`` = (y0, y1, x0, x1)."""
     return clipping_stats(_rect_slice(srgb_planes, rect))
+
+
+def luma_linear(planes: torch.Tensor) -> torch.Tensor:
+    """Rec.709 luma of linear planes [3, H, W] (wgpu_shader.wgsl:218)."""
+    return luma(planes[0], planes[1], planes[2])

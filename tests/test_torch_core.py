@@ -282,3 +282,27 @@ def test_vignette(rng, value):
                       jnp.asarray(ys), jnp.asarray(xs))
     for a, e in zip(tv, jv):
         np.testing.assert_allclose(a.numpy(), np.asarray(e), rtol=0, atol=ULPS)
+
+
+@pytest.mark.parametrize("gamma", [(2.222, 4.5 / 255.0), (2.4, 12.92), (1.8, 0.0)])
+def test_apply_gamma_matches_jax(gamma):
+    x = np.linspace(-0.2, 1.3, 20001, dtype=np.float32)
+    t = tcolor.apply_gamma(torch.from_numpy(x), gamma).numpy()
+    j = np.asarray(jcolor.apply_gamma(jnp.asarray(x), gamma))
+    assert t.dtype == np.float32
+    np.testing.assert_allclose(t, j, atol=ULPS, rtol=0)
+
+
+@pytest.mark.parametrize("xs,ys", CURVES)
+@pytest.mark.parametrize("max_ctrl", [8, 16])
+def test_eval_packed_matches_jax(xs, ys, max_ctrl):
+    """The packed-PCHIP evaluation at every LUT position (and beyond both
+    ends): the same selects and Horner steps in f32, bit for bit."""
+    breaks, coeffs = tcurve.pchip_coeffs(np.asarray(xs, np.int32),
+                                         np.asarray(ys, np.int32), max_ctrl=max_ctrl)
+    u = np.arange(-100, 65636, dtype=np.float32)
+    t = tcurve.eval_packed(torch.from_numpy(u), torch.from_numpy(breaks),
+                           torch.from_numpy(coeffs)).numpy()
+    j = np.asarray(jcurve.eval_packed(jnp.asarray(u), jnp.asarray(breaks),
+                                      jnp.asarray(coeffs)))
+    np.testing.assert_array_equal(t, j)

@@ -526,3 +526,77 @@ def test_server_answers_mid_preview_from_a_handler_thread_on_the_card(dev, tmp_p
             assert r.headers.get("X-RPF-HostDrag") == "1"
     finally:
         httpd.shutdown()
+
+
+@pytest.fixture
+def nccl_world(dev, tmp_path):
+    """A torch.distributed world of one rank over NCCL on the card."""
+    import datetime
+
+    import torch.distributed as dist
+
+    if dist.is_initialized():
+        pytest.skip("a process group is already initialized")
+    dist.init_process_group("nccl", store=dist.FileStore(str(tmp_path / "store"), 1),
+                            rank=0, world_size=1,
+                            timeout=datetime.timedelta(seconds=120))
+    try:
+        yield dist
+    finally:
+        dist.destroy_process_group()
+
+
+def test_mesh_of_one_over_nccl_on_the_card(nccl_world, dev):
+    """parallel/mesh on the card: the sharded kernel develop (one 'sp' rank,
+    row offset 0) is the single-device kernel bit for bit, and the
+    histogram through a real NCCL all_reduce is histogram_rgbl's."""
+    from rawphotoforge_tpu_torch.ops.stats import histogram_rgbl
+    from rawphotoforge_tpu_torch.parallel import mesh as pm
+
+    m = pm.make_mesh(devices=dev)
+    assert m.shape == {"batch": 1, "sp": 1} and m.device.type == "cuda"
+    plist = _params()
+    planes, masks = _inputs(dev, 512, 768, 3)
+    params = pack_params(plist, extent=(512, 768), device=dev)
+    before = fused.LAUNCHES
+    out = pm.develop_spatial_sharded(pm.shard_rows(planes, m), params,
+                                     pm.shard_rows(masks, m), m, use_kernel=True)
+    assert fused.LAUNCHES == before + 1
+    single = fused.develop_post_geo_fused(planes, params, masks)
+    assert torch.equal(pm.gather_rows(out, m), single)
+    assert torch.equal(pm.histogram_sharded(single, m), histogram_rgbl(single))
+
+
+@pytest.mark.parametrize("dtype", [np.uint8, np.uint16, np.float32])
+def test_put_np_and_fetch_np_round_trip_on_the_card(dev, dtype):
+    """The pinned, side-stream transfers move the bytes exactly, with and
+    without bands, for whole arrays and prefixes."""
+    from rawphotoforge_tpu_torch.utils import transfer
+
+    rng = np.random.default_rng(5)
+    host = (rng.random((3, 517, 771)) * 60000).astype(dtype)
+    src = host.view(np.int16) if dtype == np.uint16 else host
+    for bands in (None, 3):
+        t = transfer.put_np(src, bands=bands, device=dev)
+        assert t.device.type == "cuda"
+        assert torch.equal(t.cpu(), torch.from_numpy(src))
+        back = transfer.fetch_np(t, bands=bands)
+        np.testing.assert_array_equal(back, src)
+        np.testing.assert_array_equal(transfer.fetch_np_prefix(t, 12345),
+                                      src.reshape(-1)[:12345])
+
+
+def test_put_np_stages_several_bands_on_the_card(dev):
+    """A 41 MB read-only u16 mosaic (as a file's parsed bytes give it, as
+    its i16 bits) crosses in six 8 MB bands, bit for bit, and the caller's
+    stream sees the finished upload."""
+    from rawphotoforge_tpu_torch.utils import transfer
+
+    rng = np.random.default_rng(6)
+    data = rng.integers(0, 65535, (3413, 6007), dtype=np.uint16).tobytes()
+    mosaic = np.frombuffer(data, dtype=np.uint16).reshape(3413, 6007)
+    assert not mosaic.flags.writeable
+    t = transfer.put_np(mosaic.view(np.int16), device=dev)
+    total = int((t.to(torch.int64) & 0xFFFF).sum())  # on the caller's stream
+    assert torch.equal(t.cpu(), torch.from_numpy(mosaic.view(np.int16).copy()))
+    assert total == int(mosaic.astype(np.int64).sum())

@@ -1,6 +1,7 @@
 """The port stands alone: importing it (every module) loads neither jax nor
-the JAX package nor Pillow, no port source imports them, and chip_smoke.py
-refuses to run without a card or without the repository beside it."""
+the JAX package nor Pillow, no port source imports them, a spawned rank of
+the multi-rank tests loads neither, and chip_smoke.py refuses to run
+without a card or without the repository beside it."""
 
 import json
 import os
@@ -39,6 +40,10 @@ SLICE_7 = ["ops.masking", "engine.segmenter", "kernels.geodesic", "core.tonelut"
 # warm-up analog and the server itself (slice 8).
 SLICE_8 = ["engine.session", "app.translations", "engine.hostdev",
            "engine.prewarm", "app.server"]
+# Multi-device and transfers (slice 9): the torch.distributed layer and the
+# rest of the transfer and profiling helpers.
+SLICE_9 = ["parallel.mesh", "parallel.spatial", "utils.profiling",
+           "utils.transfer"]
 
 
 def _clean_env():
@@ -54,7 +59,16 @@ def test_importing_every_port_module_loads_no_jax_and_no_pillow():
     probe = json.loads(out.stdout.strip().splitlines()[-1])
     assert probe["loaded"] == []
     assert {f"rawphotoforge_tpu_torch.{m}"
-            for m in SLICE_5 + SLICE_6 + SLICE_7 + SLICE_8} <= set(probe["imported"])
+            for m in SLICE_5 + SLICE_6 + SLICE_7 + SLICE_8 + SLICE_9
+            } <= set(probe["imported"])
+
+
+def test_a_spawned_rank_loads_no_jax(tmp_path):
+    """The multi-rank tests' ranks (tests/torch_dist.py, spawned) import
+    the port and torch.distributed, never jax or the JAX package."""
+    from torch_dist import loaded_modules, run_world
+
+    assert run_world(loaded_modules, 2, tmp_path) == [[], []]
 
 
 @pytest.mark.parametrize("path", sorted(

@@ -178,3 +178,39 @@ def test_histogram_and_clipping(rng):
                     jstats.clipping_stats_rect(jnp.asarray(x), jnp.asarray(rect, jnp.int32)))):
         for k in ("highlight_clip_fraction", "shadow_clip_fraction"):
             assert float(tc[k]) == pytest.approx(float(jc[k]), abs=1e-7)
+
+
+def test_develop_batch_matches_jax(rng):
+    """One shared edit over a stack [N, 3, H, W]: each image the port's
+    develop, and the JAX develop_batch within the cross-package rule; the
+    package root exports it, as the JAX package's does."""
+    import rawphotoforge_tpu_torch as port
+
+    imgs = np.stack([_planes(rng, 24, 40) for _ in range(3)])
+    plist = [full_stack_edit()]
+    t = port.develop_batch(_t(imgs), pack_params(plist, device="cpu"), None)
+    for i in range(3):
+        np.testing.assert_array_equal(
+            t[i].numpy(), tdev.develop(_t(imgs[i]), pack_params(plist, device="cpu"),
+                                       None).numpy())
+    j = np.asarray(jdev.develop_batch(jnp.asarray(imgs), _jax_params(plist), None))
+    for a, b in zip(t.numpy(), j):
+        assert_close_across(a.transpose(1, 2, 0), b.transpose(1, 2, 0))
+
+
+def test_develop_post_geo_row_offset_renders_a_slab(rng):
+    """A row slab with its global row offset and the whole image's extent
+    renders the slab's rows of the whole render (the vignette's rows)."""
+    p = _planes(rng, 48, 160)
+    plist = [full_stack_edit()]
+    whole = tdev.develop_post_geo(_t(p), pack_params(plist, device="cpu"), None)
+    slab = tdev.develop_post_geo(_t(p[:, 20:33]),
+                                 pack_params(plist, extent=(48, 160), device="cpu"),
+                                 None, row_offset=20)
+    np.testing.assert_array_equal(slab.numpy(), whole[:, 20:33].numpy())
+
+
+def test_luma_linear_matches_jax(rng):
+    x = (rng.random((3, 48, 160)) * 1.2).astype(np.float32)
+    np.testing.assert_array_equal(tstats.luma_linear(_t(x)).numpy(),
+                                  np.asarray(jstats.luma_linear(jnp.asarray(x))))
