@@ -1209,10 +1209,16 @@ def phase_raw_timing(dev, card, in_dir, tmp, log):
 
 # -- the JPEG device wires ------------------------------------------------------
 
-# Phase 9's frames: small, odd, a padded render with its true extent, and
-# the 24 MP and 45.4 MP frames; (h, w, true extent or None).
+# Phase 9's frames: small, odd, a padded render with its true extent, the
+# blocks kernel's edges (a 1x1 true extent; a row pitch off the 16-byte grid
+# with 33 chunks in one strip; 3 MCU rows, 195 chunks, fewer than a wave of
+# blocks), the 24 MP and 45.4 MP frames, and the export's own case: the
+# 24 MP photo on its bucket grid, whose chunks inside the true width stage
+# by 16-byte copies, the strips beyond the true height from its last true
+# rows; (h, w, true extent or None).
 JPEG_SHAPES = ((37, 50, None), (61, 97, None), (128, 128, (100, 72)),
-               (*BAYER_HW, None), (*NORTH_STAR_HW, None))
+               (17, 33, (1, 1)), (16, 4099, (9, 4097)), (40, 8256, None),
+               (*BAYER_HW, None), (*NORTH_STAR_HW, None), (*BUCKET_HW, PHOTO_HW))
 JPEG_QUALITY = 95   # cli batch's default
 
 
@@ -1235,6 +1241,79 @@ def jpeg_edge_blocks():
     oob[20, 5] = 1024
     oob[31, 0] = 3000
     return b, oob
+
+
+# The bit lengths jpeg_lane_extremes gives its targeted blocks: 32k - 1,
+# 32k and 32k + 1 for k = 1 .. 6.
+LANE_TARGET_BITS = tuple(32 * k + d for k in range(1, 7) for d in (-1, 0, 1))
+
+
+def jpeg_lane_extremes():
+    """Hand-fed lane extremes for the Huffman kernel's warp formulation:
+    int16 blocks with absolute DCs on a grid of 4 MCU columns, the first 3
+    rows and 3 columns true, (blocks [96, 64], (grid_c, mcu_r, mcu_c)).
+    In the true MCUs' luma chain: 59-bit lanes (one nonzero at zigzag 63,
+    |v| >= 512: 3 ZRLs, then (14, 10)) behind a 2-bit and a 20-bit DC, so the
+    lane spans two and three words; nonzeros at 31/32/33, at 32 alone and at
+    31 and 33 (the seam between a lane's two positions); a nonzero only at
+    1; a DC-only block; blocks of exactly LANE_TARGET_BITS bits (runs of +-1
+    from zigzag 1, the last ones +-2, so lanes end on word boundaries).
+    Chroma: DC-only blocks with DC deltas of +-2047, a nonzero only at 1,
+    only at 63. The padding MCUs (column 3, row 3) hold +-1023 everywhere:
+    they must code to nothing."""
+    from rawphotoforge_tpu_torch.io import jpegbits
+
+    grid_c, mcu_r, mcu_c = 4, 3, 3
+    lengths = jpegbits.huffman_table() & 31
+
+    def ac_only(pairs):
+        b = np.zeros(64, np.int32)
+        for pos, v in pairs:
+            b[pos] = v
+        return b
+
+    def with_dc(dc, b):
+        b = b.copy()
+        b[0] = dc
+        return b
+
+    luma = [with_dc(0, ac_only([(63, 700)])), with_dc(1500, ac_only([(63, -513)])),
+            with_dc(1500, ac_only([(31, 5), (32, -6), (33, 7)])),
+            with_dc(1500, ac_only([(32, 1)])), with_dc(1500, ac_only([(31, -2), (33, 900)])),
+            with_dc(0, ac_only([(1, 3)])), with_dc(700, np.zeros(64, np.int32)),
+            with_dc(0, np.zeros(64, np.int32))]
+    for target in LANE_TARGET_BITS:
+        # The DC deltas of these blocks are 0 (the chain's DC stays 0), a
+        # 2-bit DC; then n coefficients of 3 bits, r of them +-2 (4 bits),
+        # and a 4-bit EOB.
+        n, r = divmod(target - 2 - 4, 3)
+        b = np.zeros(64, np.int32)
+        b[1:n + 1] = np.where(np.arange(n) % 2 == 0, 1, -1)
+        b[n + 1 - r:n + 1] *= 2
+        luma.append(b)
+    assert (int(lengths[0]), int(lengths[24 + 1]), int(lengths[24 + 2]),
+            int(lengths[24])) == (2, 2, 2, 4)
+    # (Cb, Cr) of the first MCUs: DC deltas 0 / 2047, -2047 / -2047,
+    # 2047 / 1023, then 5 / -1018 with an AC at 1 and at 63.
+    chroma = [with_dc(dc, np.zeros(64, np.int32)) for dc in (0, 2047, -2047, 0, 0, 1023)]
+    chroma += [with_dc(5, ac_only([(1, -1)])), with_dc(5, ac_only([(63, 600)]))]
+    true_mcus = mcu_r * mcu_c
+    luma += [np.zeros(64, np.int32)] * (4 * true_mcus - len(luma))
+    chroma += [np.zeros(64, np.int32)] * (2 * true_mcus - len(chroma))
+    rows = 4
+    blocks = np.zeros((rows * grid_c * 6, 64), np.int32)
+    filler = np.where(np.arange(64) % 2 == 0, 1023, -1023)
+    m = 0
+    for mcu in range(rows * grid_c):
+        r, c = divmod(mcu, grid_c)
+        if r >= mcu_r or c >= mcu_c:
+            blocks[6 * mcu:6 * mcu + 6] = filler
+            continue
+        blocks[6 * mcu:6 * mcu + 4] = luma[4 * m:4 * m + 4]
+        blocks[6 * mcu + 4] = chroma[2 * m]
+        blocks[6 * mcu + 5] = chroma[2 * m + 1]
+        m += 1
+    return blocks.astype(np.int16), (grid_c, mcu_r, mcu_c)
 
 
 def jpeg_scene(rng, h, w, dev):
@@ -1309,11 +1388,27 @@ def phase_jpeg_kernels(dev, card, log):
     _, _, bad = _entropy_vs_twins(torch.from_numpy(oob).to(dev), 3, 2, 3,
                                   "out-of-domain blocks")
     check(int(bad) > 0, "the out-of-domain blocks were not flagged")
+    extremes, (grid_c, mcu_r, mcu_c) = jpeg_lane_extremes()
+    n_ext = extremes.shape[0]
+    for grid in ((grid_c, mcu_r, mcu_c), (grid_c, n_ext // 6 // grid_c, grid_c)):
+        blocks = torch.from_numpy(extremes).to(dev)
+        words, bits, bad = _entropy_vs_twins(blocks, *grid, f"lane extremes {grid}")
+        mask = jpegbits._true_mask(n_ext, *grid)
+        ref_words, ref_bits = jpegbits.packed_np(
+            jpegbits._dc_delta_masked(torch.from_numpy(extremes), mask).numpy(),
+            mask.numpy())
+        scan = jw.pack(words, bits, packed=True)
+        check(int(bad) == 0 and (grid[1] != mcu_r
+                                 or set(LANE_TARGET_BITS) <= set(bits.tolist()))
+              and np.array_equal(jpegbits.fetch_scan(scan, ref_words.size), ref_words)
+              and int(bits.sum()) == ref_bits, f"lane extremes {grid}: scan vs packed_np")
     log(f"phase 9: hand-fed blocks (+-1023 ACs: {longest}-bit blocks of "
         f"the {32 * jpegbits.BLOCK_WORDS}-bit bound, +-2047 DC deltas, ZRL chains, "
-        f"no-EOB, padding grids 3x2/2 and 3x1): Huffman and pack kernels == "
-        f"twins bit for bit, scan == packed_np; out-of-domain lanes {int(bad)} == "
-        f"twin's")
+        f"no-EOB, padding grids 3x2/2 and 3x1; lane extremes: 59-bit lanes over "
+        f"2 and 3 words, the 31/32/33 seam, blocks of 32k-1/32k/32k+1 bits for "
+        f"k <= 6, DC-only, padding MCUs between true ones): Huffman and pack "
+        f"kernels == twins bit for bit, scans == packed_np; out-of-domain lanes "
+        f"== twin's")
 
     rng = np.random.default_rng(SEED + 9)
     qlum, qchr = jpegenc._quant_tables(JPEG_QUALITY)
@@ -1330,7 +1425,12 @@ def phase_jpeg_kernels(dev, card, log):
                           f"{h}x{w} blocks kernel vs the CPU twin")
         grid = (-(-w // 16), -(-th // 16), -(-tw // 16))
         _, bits, _ = _entropy_vs_twins(blocks, *grid, f"{h}x{w}")
-        files = [enc(planes, JPEG_QUALITY, true_shape=true_hw) for enc in (
+        # The wires take a padded render only MCU-aligned: an unaligned
+        # frame's files are of its true extent.
+        src, shape = planes, true_hw
+        if true_hw and (h % 16 or w % 16):
+            src, shape = planes[:, :th, :tw].contiguous(), None
+        files = [enc(src, JPEG_QUALITY, true_shape=shape) for enc in (
             jpegbits.encode_packed_device, jpegbits.encode_prepacked_device,
             jpegenc._encode_sparse_device)]
         check(files[0] == files[1] == files[2],
@@ -1344,59 +1444,86 @@ def phase_jpeg_kernels(dev, card, log):
             + f"; packed == prepacked == nibble file, {len(files[0])} bytes "
             f"({int(bits.to(torch.int64).sum()) / 8 / (th * tw):.3f} B/px of scan), "
             f"decodes at {tw}x{th}")
-        del planes, blocks, bits, files
+        del planes, blocks, bits, files, src
         torch.cuda.empty_cache()
 
     # Times at 24 MP, the batch's Bayer frame.
     h, w = BAYER_HW
-    planes = jpeg_scene(rng, h, w, dev)
-    blocks = jw.blocks(planes, qlum, qchr)
-    n = blocks.shape[0]
-    grid = (-(-w // 16), -(-h // 16), -(-w // 16))
-    words, bits, _ = jw.huffman(blocks, *grid)
-    mask = jpegbits._true_mask(n, *grid, dev)
-    nwords = int(((bits.to(torch.int64) + 31) >> 5).sum())
-    total_words = (int(bits.to(torch.int64).sum()) + 31) // 32
-    w64, b64 = words.to(torch.int64) & 0xFFFFFFFF, bits.to(torch.int64)
-    # (kernel, twin, bytes the function must move, its operations): the
-    # blocks kernel ~35 operations a coefficient (two 8-term sums, the
-    # division, the rounding) and ~20 a pixel (colour conversion, chroma
-    # mean); the Huffman walk ~4 a coefficient; the pack ~8 a word. This
-    # run's bit strings set the data-dependent bytes.
-    cases = {
-        "jpeg_blocks_kernel": (
-            lambda: jw.blocks(planes, qlum, qchr),
-            lambda: jpegenc.blockify(planes, qlum, qchr),
-            12 * h * w + 2 * 64 * n, 64 * n * 35 + 20 * h * w),
-        "jpeg_huffman_kernel": (
-            lambda: jw.huffman(blocks, *grid),
-            lambda: jpegbits.prepack(jpegbits._dc_delta_masked(blocks, mask), mask),
-            2 * 64 * n + 4 * nwords + 4 * n, 64 * n * 4),
-        "jpeg_pack_kernel": (
-            lambda: jw.pack(words, bits, packed=True),
-            lambda: jpegbits.scan_from_words(w64, b64),
-            4 * nwords + 12 * n + 4 * total_words, 8 * nwords),
-    }
+    case = jpeg_time_case(dev, rng, h, w)
     rows = {}
-    for name, (kernel, twin, nbytes, ops) in cases.items():
+    for name in ("jpeg_blocks_kernel", "jpeg_huffman_kernel", "jpeg_pack_kernel"):
+        kernel, twin, nbytes, iface_bytes, ops = case[name]
         ms = time_events(kernel, reps=20)
         plain = time_events(twin, reps=2, warm=1)
         t_bytes, t_ops = nbytes / PEAK_BYTES_S * 1e3, ops / PEAK_F32_S * 1e3
         bound = max(t_bytes, t_ops)
         by = "bytes" if t_bytes >= t_ops else "operations"
         rows[name] = dict(ms=ms, plain_ms=plain, bound_ms=bound, bound_by=by)
+        iface = ""
+        if iface_bytes != nbytes:
+            t_iface = max(iface_bytes / PEAK_BYTES_S * 1e3, t_ops)
+            iface = (f"; interface bound {t_iface:.4f} ms (the 52-word slots as laid "
+                     f"out: {iface_bytes / 1e6:.1f} MB), {100 * t_iface / ms:.1f}% of it")
         log(f"phase 9: {name} {w}x{h} q{JPEG_QUALITY}: {ms:.4f} ms; bound "
             f"{bound:.4f} ms by {by} (bytes {nbytes / 1e6:.1f} MB -> {t_bytes:.4f} "
             f"ms at 3.35 TB/s; ops {ops / 1e9:.3f} G -> {t_ops:.4f} ms); "
-            f"{100 * bound / ms:.1f}% of roofline; plain twin {plain:.2f} ms (no "
-            f"yardstick); library_ms none [{card}]")
-    wire_ms = time_events(lambda: jpegbits.wire_packed_extent(planes, qlum, qchr, h, w),
-                          reps=10)
+            f"{100 * bound / ms:.1f}% of roofline{iface}; plain twin {plain:.2f} ms "
+            f"(no yardstick); library_ms none [{card}]")
+    wire_ms = time_events(case["packed_wire"], reps=10)
     log(f"phase 9: the packed device wire (blocks + Huffman + cumsum + pack) "
-        f"{w}x{h}: {wire_ms:.4f} ms; its scan {4 * total_words / 1e6:.3f} MB "
-        f"({4 * total_words / (h * w):.3f} B/px; the dense wire fetched 1.5 B/px) "
+        f"{w}x{h}: {wire_ms:.4f} ms; its scan {4 * case['scan_words'] / 1e6:.3f} MB "
+        f"({4 * case['scan_words'] / (h * w):.3f} B/px; the dense wire fetched 1.5 B/px) "
         f"[{card}]")
     return rows
+
+
+def jpeg_time_case(dev, rng, h, w):
+    """The JPEG kernels' timed calls on a seeded h x w jpeg_scene at
+    JPEG_QUALITY, through the jpeg_wire API (a copy of this script in
+    another checkout times that checkout's kernels):
+    {kernel: (call, twin call, bytes the function must move, bytes of the
+    interface's 52-word slots, operations)}, "packed_wire" (blocks + Huffman
+    + cumsum + pack) and "scan_words". The blocks kernel ~35 operations a
+    coefficient (two 8-term sums, the division, the rounding) and ~20 a
+    pixel (colour conversion, chroma mean); the Huffman lanes ~4 a
+    coefficient; the pack ~8 a word. This run's bit strings set the
+    data-dependent bytes: the Huffman kernel must write the coded words
+    (its interface writes every slot whole, 4 * 52 bytes a block); the pack
+    kernel must read them (its interface holds them in those slots)."""
+    import torch
+
+    from rawphotoforge_tpu_torch.io import jpegbits, jpegenc
+    from rawphotoforge_tpu_torch.kernels import jpeg_wire as jw
+
+    qlum, qchr = jpegenc._quant_tables(JPEG_QUALITY)
+    planes = jpeg_scene(rng, h, w, dev)
+    blocks = jw.blocks(planes, qlum, qchr)
+    n = blocks.shape[0]
+    grid = (-(-w // 16), -(-h // 16), -(-w // 16))
+    words, bits, _ = jw.huffman(blocks, *grid)
+    mask = jpegbits._true_mask(n, *grid, dev)
+    bits64 = bits.to(torch.int64)
+    nwords = int(((bits64 + 31) >> 5).sum())
+    total_words = (int(bits64.sum()) + 31) // 32
+    w64 = words.to(torch.int64) & 0xFFFFFFFF
+    slots = 4 * jpegbits.BLOCK_WORDS * n
+    return {
+        "jpeg_blocks_kernel": (
+            lambda: jw.blocks(planes, qlum, qchr),
+            lambda: jpegenc.blockify(planes, qlum, qchr),
+            12 * h * w + 2 * 64 * n, 12 * h * w + 2 * 64 * n, 64 * n * 35 + 20 * h * w),
+        "jpeg_huffman_kernel": (
+            lambda: jw.huffman(blocks, *grid),
+            lambda: jpegbits.prepack(jpegbits._dc_delta_masked(blocks, mask), mask),
+            2 * 64 * n + 4 * nwords + 4 * n, 2 * 64 * n + slots + 4 * n, 64 * n * 4),
+        "jpeg_pack_kernel": (
+            lambda: jw.pack(words, bits, packed=True),
+            lambda: jpegbits.scan_from_words(w64, bits64),
+            4 * nwords + 12 * n + 4 * total_words, slots + 12 * n + 4 * total_words,
+            8 * nwords),
+        "packed_wire": lambda: jpegbits.wire_packed_extent(planes, qlum, qchr, h, w),
+        "scan_words": total_words,
+    }
 
 
 # -- vendor containers, the decode gate, lens correction ------------------------
@@ -2966,19 +3093,21 @@ def table_packed_once(fused, call):
         fused.pack_table = real
 
 
-def kernel_times(dev, card):
-    """Only the kernels' times of phases 4 and 7 (median of 5 windows of 20
-    launches; no bounds, no twin), from the package beside this file: a
+def kernel_times(dev, card, jpeg_only=False):
+    """Only the kernels' times of phases 4, 7 and 9 (median of 5 windows of
+    20 launches; no bounds, no twin), from the package beside this file: a
     copy of this script in another checkout times that checkout's kernels
     on the same cases. Each develop case is timed once more with its table
-    packed once (``..._table_packed_once``)."""
+    packed once (``..._table_packed_once``); the three JPEG kernels and the
+    packed wire run at 24 MP and 45.4 MP on jpeg_scene (``jpeg_only``:
+    only these, ``--kernel-times --jpeg``)."""
     import torch
 
     from rawphotoforge_tpu_torch.core.params import pack_params
     from rawphotoforge_tpu_torch.kernels import fused, raw_pipeline as rp
 
     times = {}
-    planes, cases = develop_cases(dev)
+    planes, cases = develop_cases(dev) if not jpeg_only else (None, [])
     for name, plist, masks, flags in cases:
         params = pack_params(plist, extent=PHOTO_HW, device=dev)
 
@@ -2989,13 +3118,21 @@ def kernel_times(dev, card):
         times[f"develop_{name}_table_packed_once"] = table_packed_once(fused, call)
     del planes, cases
     rng = np.random.default_rng(SEED + 5)
-    for pattern, (h, w) in RAW_FRAMES:
+    for pattern, (h, w) in RAW_FRAMES if not jpeg_only else ():
         mosaic = torch.from_numpy(rng.random((h, w), dtype=np.float32)).to(dev)
         for variant, edit, flags in raw_variants():
             args = raw_args(dev, mosaic, edit)
             times[f"raw_{pattern}_{w}x{h}_{variant}"] = median_time(
                 lambda: rp.raw_develop_fused(*args, pattern=pattern, **flags))
         del mosaic
+        torch.cuda.empty_cache()
+    for h, w in (BAYER_HW, NORTH_STAR_HW):
+        case = jpeg_time_case(dev, np.random.default_rng(SEED + 9), h, w)
+        for name in ("jpeg_blocks_kernel", "jpeg_huffman_kernel", "jpeg_pack_kernel",
+                     "packed_wire"):
+            call = case[name] if name == "packed_wire" else case[name][0]
+            times[f"{name}_{w}x{h}"] = median_time(call)
+        del case
         torch.cuda.empty_cache()
     return {"card": card, "root": ROOT, "ms": times}
 
@@ -3157,6 +3294,45 @@ def bayer_ab(dev, card, log):
         del src, dst
 
 
+# --jpeg-ab: the JPEG Huffman kernel built with a stage cut out (wrong
+# output; the time tells the stage's share): without its string assembly
+# (the shared-memory atomicOrs), without its code lookups, without both.
+_AB_HUFF_OR = ("      if (len_a) or_string(sw, z_a, zrl, zrl_len, body_a, blen_a, before & 0xFFFF);\n"
+               "      if (len_b)\n"
+               "        or_string(sw, z_b, zrl, zrl_len, body_b, blen_b, total_a + (before >> 16));\n")
+_AB_HUFF_CODES = [("blen_a = lane_body(lane, prev_a, va, cd, body_a, bad);", "blen_a = 3; body_a = 5;"),
+                  ("blen_b = lane_body(32 + lane, prev_b, vb, cd, body_b, bad);",
+                   "blen_b = 3; body_b = 5;")]
+JPEG_HUFFMAN_AB_VARIANTS = {
+    "shipped": [],
+    "without_string_assembly": [(_AB_HUFF_OR, "")],
+    "without_code_lookups": _AB_HUFF_CODES,
+    "without_both": [(_AB_HUFF_OR, ""), *_AB_HUFF_CODES],
+}
+
+
+def jpeg_ab(dev, card, log):
+    """The Huffman kernel with each of JPEG_HUFFMAN_AB_VARIANTS at 24 MP,
+    then a torch copy of the Huffman and blocks kernels' bytes (the data
+    movement alone, on torch's copy kernel)."""
+    import torch
+
+    from rawphotoforge_tpu_torch.kernels import jpeg_wire as jw
+
+    h, w = BAYER_HW
+    case = jpeg_time_case(dev, np.random.default_rng(SEED + 9), h, w)
+    huffman, blocks = case["jpeg_huffman_kernel"], case["jpeg_blocks_kernel"]
+    ab_run(jw, "jpeg_encode.cu", "rpf_jpeg_huffman_launch", JPEG_HUFFMAN_AB_VARIANTS,
+           [(f"huffman_{w}x{h}", lambda: huffman[0]()[0])], card, log, "jpeg-ab")
+    for name, nbytes in (("huffman (interface)", huffman[3]), ("blocks", blocks[2])):
+        src = torch.empty(nbytes // 8, dtype=torch.int32, device=dev)
+        dst = torch.empty_like(src)
+        ms = median_time(lambda: dst.copy_(src))
+        log(f"jpeg-ab: {name}: torch copy of the same bytes ({nbytes / 1e6:.1f} MB, "
+            f"half read, half written): median {ms:.4f} ms [{card}]")
+        del src, dst
+
+
 def main() -> int:
     try:
         import torch
@@ -3203,13 +3379,16 @@ def main() -> int:
                 log(f"phase 1: ptxas: {line.strip()}")
 
     if "--kernel-times" in sys.argv:
-        print(json.dumps(kernel_times(dev, card)))
+        print(json.dumps(kernel_times(dev, card, jpeg_only="--jpeg" in sys.argv)))
         return 0
     if "--develop-ab" in sys.argv:
         develop_ab(dev, card, log)
         return 0
     if "--bayer-ab" in sys.argv:
         bayer_ab(dev, card, log)
+        return 0
+    if "--jpeg-ab" in sys.argv:
+        jpeg_ab(dev, card, log)
         return 0
     if "--mesh-cards" in sys.argv:
         mesh_cards(dev, card, log)

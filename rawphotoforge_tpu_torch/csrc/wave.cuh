@@ -13,7 +13,9 @@
 namespace rpf {
 
 // Blocks of `kernel` at `threads` threads and `smem` bytes of dynamic shared
-// memory that fit on the current device at once, into *blocks.
+// memory that fit on the current device at once, into *blocks. Where `smem`
+// is over the default 48 KiB, the kernel's limit is raised to it first, so
+// once per device like the query.
 template <typename Kernel>
 cudaError_t wave_blocks(Kernel kernel, int threads, size_t smem, int* blocks) {
   struct Known {
@@ -35,6 +37,11 @@ cudaError_t wave_blocks(Kernel kernel, int threads, size_t smem, int* blocks) {
       *blocks = k.blocks;
       return cudaSuccess;
     }
+  }
+  if (smem > 48 * 1024) {
+    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem));
+    if (e != cudaSuccess) return e;
   }
   int sms = 0, per_sm = 0;
   e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);

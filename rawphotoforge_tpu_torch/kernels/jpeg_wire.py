@@ -18,8 +18,20 @@ Pallas kernel, so this is a new design, not a translation. The CUDA source is
   at their word offsets (prepacked); the offsets are a ``torch.cumsum``.
   Twins: ``io/jpegbits.scan_from_words`` / ``concat_words``.
 
-Bound on the H100: bytes (the planes read once, the blocks, the bit strings
-and the scan). Words are u32 bit patterns in int32 tensors on every device.
+Design on the H100 (bound by bytes: the planes read once, the blocks, the
+bit strings and the scan). The blocks kernel is one wave of blocks walking
+16-row x 128-column chunks of the MCU strips: its constants staged once a
+block, the chunk's planes staged by ``cp.async`` (16-byte copies where the
+row pitch is 16-byte aligned, 4-byte ones where it is not), double-
+buffered, each pixel converted once, the fDCT's sequential sums from
+shared memory (no tensor cores: their sums would round otherwise). The
+Huffman kernel is a warp per block (a wave of 6-warp blocks, an MCU at a
+time): one coalesced load of the block, a ballot for the zero runs, a
+shuffle scan for the bit offsets, the words assembled in shared memory and
+stored as 16-byte vectors into the block's 52-word slot. Words are u32 bit
+patterns in int32 tensors on every device; the blocks kernel's output and
+the Huffman kernel's slots must be 16-byte aligned, as ``torch.empty``
+gives them (a misaligned tensor raises).
 
 Each wrapper takes the twin for a CPU tensor and the kernel for a CUDA
 tensor; there is no fallback from one to the other. Each kernel counts its

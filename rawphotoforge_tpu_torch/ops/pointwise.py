@@ -14,6 +14,16 @@ import torch
 from ..core.color import luma
 from ..core.numerics import div
 
+# torch's CPU sqrt is MKL's vector math library (vsSqrt / vdSqrt). Its
+# first call in a process, split over several intra-op threads, can give
+# one thread roots good to only ~12 bits (the develop's vignette off by up
+# to 1.5e-3 in the second thread's rows); a first call on one thread
+# readies the library, and later calls agree with each other bit for bit.
+# The package imports this module, so this runs before any of its roots.
+for _dtype in (torch.float32, torch.float64):
+    torch.sqrt(torch.ones(1, dtype=_dtype))
+del _dtype
+
 
 def white_balance(r, g, b, gains):
     """Per-channel gains; gains is a length-3 vector (r_gain, g_gain, b_gain)."""

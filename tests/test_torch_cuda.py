@@ -359,10 +359,17 @@ def test_lens_corrected_editor_on_the_card_matches_cpu(dev, tmp_path):
 # -- the JPEG device wires ------------------------------------------------------
 
 @pytest.mark.parametrize("h,w,true_hw", [(37, 50, None), (61, 97, None),
-                                         (128, 128, (100, 72)), (512, 768, None)])
+                                         (128, 128, (100, 72)), (512, 768, None),
+                                         (17, 33, (1, 1)), (16, 4099, (9, 4097)),
+                                         (40, 8256, None), (64, 256, (30, 200))])
 def test_jpeg_kernels_match_twins(dev, h, w, true_hw):
     """The blocks, Huffman and pack kernels against their twins, bit for bit
-    (the blocks also against the CPU twin): one launch of each."""
+    (the blocks also against the CPU twin): one launch of each. The blocks
+    kernel's edges: a 1x1 true extent, a row pitch off the 16-byte grid with
+    several chunks in one strip, fewer chunks than a wave of blocks, and a
+    16-byte-aligned pitch with a true extent (16-byte staging of clamped
+    rows and of strips beyond the true height, 4-byte staging of the chunk
+    that crosses the true width)."""
     from chip_smoke import _entropy_vs_twins, jpeg_scene
     from rawphotoforge_tpu_torch.io import jpegenc
     from rawphotoforge_tpu_torch.kernels import jpeg_wire as jw
@@ -383,22 +390,33 @@ def test_jpeg_kernels_match_twins(dev, h, w, true_hw):
 
 def test_jpeg_edge_blocks_on_the_card(dev):
     """Hand-fed worst cases (+-1023 ACs, +-2047 DC deltas, ZRL chains, no
-    EOB, padding grids) and out-of-domain coefficients through the Huffman
-    and pack kernels, against the twins and the serial oracle."""
-    from chip_smoke import _entropy_vs_twins, jpeg_edge_blocks
+    EOB, padding grids), the lane extremes of the warp formulation (59-bit
+    lanes, the 31/32/33 seam, blocks of 32k and 32k +- 1 bits, DC-only
+    blocks, padding MCUs between true ones) and out-of-domain coefficients
+    through the Huffman and pack kernels, against the twins and the serial
+    oracle."""
+    from chip_smoke import (LANE_TARGET_BITS, _entropy_vs_twins, jpeg_edge_blocks,
+                            jpeg_lane_extremes)
     from rawphotoforge_tpu_torch.io import jpegbits
     from rawphotoforge_tpu_torch.kernels import jpeg_wire as jw
 
     good, oob = jpeg_edge_blocks()
-    for grid in ((3, 2, 3), (3, 2, 2), (3, 1, 3)):
-        words, bits, bad = _entropy_vs_twins(torch.from_numpy(good).to(dev), *grid,
+    extremes, (grid_c, mcu_r, mcu_c) = jpeg_lane_extremes()
+    n_ext = extremes.shape[0]
+    for blocks, grid in [(good, g) for g in ((3, 2, 3), (3, 2, 2), (3, 1, 3))] + [
+            (extremes, (grid_c, mcu_r, mcu_c)),
+            (extremes, (grid_c, n_ext // 6 // grid_c, grid_c))]:
+        words, bits, bad = _entropy_vs_twins(torch.from_numpy(blocks).to(dev), *grid,
                                              str(grid))
         assert int(bad) == 0 and int(bits.max()) <= 32 * jpegbits.BLOCK_WORDS
-        mask = jpegbits._true_mask(36, *grid)
+        mask = jpegbits._true_mask(blocks.shape[0], *grid)
         ref, nbits = jpegbits.packed_np(
-            jpegbits._dc_delta_masked(torch.from_numpy(good), mask).numpy(), mask.numpy())
+            jpegbits._dc_delta_masked(torch.from_numpy(blocks), mask).numpy(),
+            mask.numpy())
         assert int(bits.sum()) == nbits
         assert np.array_equal(jpegbits.fetch_scan(jw.pack(words, bits), ref.size), ref)
+        if blocks is extremes and grid[1] == mcu_r:
+            assert set(LANE_TARGET_BITS) <= set(bits.tolist())
     _, _, bad = _entropy_vs_twins(torch.from_numpy(oob).to(dev), 3, 2, 3, "oob")
     assert int(bad) > 0
 

@@ -1,7 +1,8 @@
 """The port stands alone: importing it (every module) loads neither jax nor
 the JAX package nor Pillow, no port source imports them, a spawned rank of
 the multi-rank tests loads neither, and chip_smoke.py refuses to run
-without a card or without the repository beside it."""
+without a card or without the repository beside it; its A/B modes cut
+lines that csrc/ holds."""
 
 import json
 import os
@@ -100,3 +101,17 @@ def test_chip_smoke_without_a_card_fails_without_a_result():
     out = _run_smoke(ROOT)
     assert out.returncode != 0
     assert '"ok"' not in out.stdout and "no CUDA device" in out.stderr
+
+
+@pytest.mark.parametrize("variants", ["AB_VARIANTS", "BAYER_AB_VARIANTS",
+                                      "JPEG_HUFFMAN_AB_VARIANTS"])
+def test_chip_smoke_ab_cuts_are_in_csrc(variants):
+    """chip_smoke.py's --develop-ab, --bayer-ab and --jpeg-ab build csrc/
+    with exact lines replaced (on the card a mode fails when a line is
+    gone): every cut's text is in csrc/."""
+    import chip_smoke
+
+    texts = [p.read_text() for p in (PORT / "csrc").iterdir()]
+    for name, subs in getattr(chip_smoke, variants).items():
+        for text, _ in subs:
+            assert any(text in t for t in texts), (variants, name, text)

@@ -165,6 +165,35 @@ def test_packed_edge_blocks_and_padding():
     _check_packed(blocks, mask)
 
 
+@pytest.mark.parametrize("padded", [True, False])
+def test_prepack_lane_extremes_match_jax_oracle(padded):
+    """chip_smoke.jpeg_lane_extremes (the card's hand-fed lane extremes:
+    59-bit lanes over two and three words, the 31/32/33 seam, blocks of 32k
+    and 32k +- 1 bits, DC-only blocks, padding MCUs between true ones):
+    prepack after the masked DC deltas against the JAX oracle prepacked_np,
+    on the set's own padded grid and with every MCU true."""
+    from chip_smoke import LANE_TARGET_BITS, jpeg_lane_extremes
+
+    blocks, (grid_c, mcu_r, mcu_c) = jpeg_lane_extremes()
+    n = blocks.shape[0]
+    if not padded:
+        mcu_r, mcu_c = n // 6 // grid_c, grid_c
+    mask = tbits._true_mask(n, grid_c, mcu_r, mcu_c)
+    deltas = tbits._dc_delta_masked(torch.from_numpy(blocks), mask)
+    bits, words, nwords, bad = tbits.prepack(deltas, mask)
+    lens_o, words_o = jbits.prepacked_np(deltas.numpy(), mask.numpy())
+    np.testing.assert_array_equal(bits.numpy(), lens_o)
+    np.testing.assert_array_equal(_stream(_u32(words), nwords.numpy()), words_o)
+    assert int(bad) == 0
+    # With every MCU true the padding MCUs' DCs join the chain and shift
+    # the targeted blocks' DC deltas.
+    assert not padded or set(LANE_TARGET_BITS) <= set(bits.tolist())
+    _, length, _ = tbits._lanes(deltas, mask)
+    ends = torch.cumsum(length, 1)
+    assert int(length.max()) == 59
+    assert bool(((ends % 32 == 0) & (length > 0) & (ends < bits[:, None])).any())
+
+
 def test_huffman_wrapper_is_the_twin_on_the_cpu():
     """On a CPU tensor jpeg_wire.huffman and .pack run the twins (no
     launch counted): the masked DC chain, the 52-word strings, and the scan

@@ -70,14 +70,16 @@ def test_constants_and_tables_match_jax(quality):
     assert tjpeg.SPARSE_MIN_PIXELS == jjpeg.SPARSE_MIN_PIXELS
 
 
-@pytest.mark.parametrize("h,w", [(37, 50), (61, 97), (48, 64), (16, 16), (15, 17)])
+@pytest.mark.parametrize("h,w", [(37, 50), (61, 97), (48, 64), (16, 16), (15, 17),
+                                 (40, 8256)])
 def test_blockify_matches_jax(h, w):
     planes = _noise(h, w, h * 7 + w)
     _straddles(_port_blockify(planes, 92), _jax_blockify(planes, 92))
 
 
 @pytest.mark.parametrize("h,w,ph,pw", [(100, 72, 128, 128), (37, 50, 48, 64),
-                                       (40, 56, 48, 64)])
+                                       (40, 56, 48, 64), (1, 1, 17, 33),
+                                       (9, 4097, 16, 4099), (30, 200, 64, 256)])
 def test_blockify_true_extent_matches_jax_and_a_direct_encode(h, w, ph, pw):
     """A padded render with noise in the padding: the luma-level fill
     before the subsample and the chroma-level fill after it give the blocks
@@ -87,7 +89,7 @@ def test_blockify_true_extent_matches_jax_and_a_direct_encode(h, w, ph, pw):
     ours = _port_blockify(planes, 90, (h, w))
     _straddles(ours, _jax_blockify(planes, 90, (h, w)))
     direct = _port_blockify(np.ascontiguousarray(planes[:, :h, :w]), 90)
-    mask = tbits._true_mask(ours.shape[0], pw // 16, -(-h // 16), -(-w // 16)).numpy()
+    mask = tbits._true_mask(ours.shape[0], -(-pw // 16), -(-h // 16), -(-w // 16)).numpy()
     np.testing.assert_array_equal(ours[mask], direct)
 
 

@@ -260,23 +260,18 @@ def test_make_mesh_without_a_process_group_raises():
         pm.make_mesh()
 
 
-# ROADMAP C: the largest first-call deviation seen, 1.501e-3 (a rank of
-# this test in a Tier-1 run; 1.5e-3 when the fault was found).
-FIRST_CALL_FAULT = 2e-3
-
-
 def test_first_develop_call_of_a_fresh_process(ranks, world):
     """Each rank is a fresh process: its first develop calls, on two
-    intra-op threads, equal its later calls bit for bit, or differ only as
-    the known CPU fault does (ROADMAP C): within FIRST_CALL_FAULT and only
-    in the rows of the second thread's half. Later calls always agree."""
+    intra-op threads, equal its later calls bit for bit. (A first torch
+    sqrt split over threads could give one thread ~12-bit roots, up to
+    1.5e-3 off after the develop; ops/pointwise readies the library on one
+    thread when the package is imported, ROADMAP C.)"""
     assert len(ranks.first_calls) == 4
     for rank, first in enumerate(ranks.first_calls):
         assert sorted(first) == sorted(FIRST_CALL_FRAMES)
         for (h, w), (first_vs_second, second_vs_third, rows) in first.items():
             assert second_vs_third == 0.0, (rank, (h, w), second_vs_third)
-            assert first_vs_second <= FIRST_CALL_FAULT, (rank, (h, w), first_vs_second)
-            assert all(r >= h // 2 for r in rows), (rank, (h, w), rows)
+            assert first_vs_second == 0.0 and rows == [], (rank, (h, w), first_vs_second, rows)
 
 
 def test_make_mesh_cuda_gives_each_rank_its_card(world):

@@ -12,10 +12,9 @@ does not finish by the deadline is killed and fails it too, so a hang costs
 the deadline, not the suite's clock.
 
 A rank runs its case on one intra-op thread, as torchrun gives its
-workers, after one develop call (the first develop call of a process can
-be off, ROADMAP C): ``warm_port_cpu``, or with ``first_calls=True`` the
-first calls that ``first_develop_calls`` measures on two threads
-(``World.first_calls``).
+workers, after one develop call: ``warm_port_cpu``, or with
+``first_calls=True`` the first calls that ``first_develop_calls`` measures
+on two threads (``World.first_calls``).
 
 The cases (``mesh_case``, ``spatial_case``, ``cli_case``, ``loaded_modules``)
 hold the port's side of tests/test_torch_mesh.py, test_torch_spatial.py,
@@ -166,11 +165,11 @@ def first_develop_calls() -> dict:
 
 
 def warm_port_cpu():
-    """One small develop on the CPU. The first develop call of a process
-    can render rows of a second intra-op thread off (ROADMAP C;
-    tests/test_torch_mesh.py::test_first_develop_call_of_a_fresh_process
-    checks it in the ranks, whose first calls are first_develop_calls), so
-    a test process makes this call before its compared ones."""
+    """One small develop on the CPU before a process's compared calls. The
+    first develop call of a process could be off (ROADMAP C, repaired in
+    ops/pointwise); this warm-up keeps a return of that fault to one test,
+    test_torch_mesh.py::test_first_develop_call_of_a_fresh_process, whose
+    ranks measure their first calls (first_develop_calls)."""
     import torch
 
     from rawphotoforge_tpu_torch.ops import develop
