@@ -37,11 +37,13 @@ Phases (any failure raises, and the script exits non-zero):
     bound), plus one full-size frame of each CFA;
  9. (run after phase 5, before the batch uses them) the three JPEG kernels
     (csrc/jpeg_encode.cu) held against their plain twins bit for bit:
-    hand-fed worst-case blocks through the Huffman and pack kernels, then
-    37x50, 61x97, a 128x128 render with a 100x72 true extent, 24 MP and
-    45.4 MP through all three; the packed, prepacked and nibble wires'
-    files byte-identical and decoding at their true size; CUDA-event times
-    of each kernel at 24 MP beside its byte bound and its twin's time;
+    hand-fed worst-case blocks through the Huffman and pack kernels and
+    hand-fed words and bit lengths through the pack kernel, then 37x50,
+    61x97, a 128x128 render with a 100x72 true extent, 24 MP and 45.4 MP
+    through all three; the packed, prepacked and nibble wires' files
+    byte-identical and decoding at their true size; CUDA-event times of
+    each kernel at 24 MP beside its byte bound (the pack's counting its
+    zero-filled output) and its twin's time;
  6. the RAW main path: a 24 MP RGGB lossless-JPEG DNG and a 26 MP X-Trans
     DNG (orientation 6) written with the port's write_dng, developed by
     `cli batch` on the card (exactly one launch of each RAW kernel, Bayer
@@ -72,14 +74,17 @@ Phases (any failure raises, and the script exits non-zero):
     per-file stage times (parse + decode, the gate, upload, kernels, the
     JPEG device wire, scan fetch and assembly), then the vendor batch's
     MPix/s and the card's idle share under the profiler;
- 10. masks and exports: the geodesic sweep kernel (csrc/geodesic.cu) held
+ 10. masks and exports: the geodesic flood kernel (csrc/geodesic.cu) held
     against its plain twin bit for bit, every direction and whole floods
-    (corner seeds, a 3-seed set, a NaN pixel) at 37x50, 61x97, 128x128,
-    1x300, 300x1 and MID 853x1280, with CUDA-event times of the MID flood
-    (column and row sweeps apart) beside its byte bound, the twin and
-    torch.cumsum + torch.cummin; then on a seeded 6000x4000 session on the
-    card: add_similarity_mask (a point; labelled points), add_smart_mask (a
-    point; include + exclude: 16 + 32 geodesic launches, no twin call),
+    (corner seeds, a 3-seed set, a NaN pixel, 1, 4 and 12 rounds; one
+    launch each) at 37x50, 61x97, 128x128, 1x300, 300x1, 853x1281,
+    4000x96, 96x6000 and MID 853x1280, with CUDA-event times of the MID
+    flood (and of its column and row sweeps alone) beside its chain bound
+    (the dependent steps, from the kernel's SASS and the SM clock) and its
+    byte bound, the twin and torch.cumsum + torch.cummin; then on a seeded
+    6000x4000 session on the card: add_similarity_mask (a point; labelled
+    points), add_smart_mask (a point; include + exclude: 1 + 2 geodesic
+    launches, one a flood, no twin call),
     add_model_mask (a stub segmenter on the card), mask_overlay_srgb at MID,
     the FULL render with the new masks against the exact-LUT anchor,
     save_hdr_dng of it reopened by read_raw (within 2e-3, f16), `cli
@@ -96,7 +101,7 @@ Phases (any failure raises, and the script exits non-zero):
     the DNG with the same state) byte for byte; 20 drag ticks each with the
     host drag on (X-RPF-HostDrag, no host-drag failure, the host frame
     within tests/test_hostdev.py's u8 rule of the card's LOW render) and
-    off; 10 MID releases; a smart mask (16 geodesic launches); an async JPEG
+    off; 10 MID releases; a smart mask (one geodesic launch); an async JPEG
     export byte for byte the direct editor's save_bytes("JPEG") (the three
     JPEG kernels launched); no twin call. Prints the open timings, the era
     LOW tick, the drag ticks' p50/p95 with the X-RPF-Drag-Us split, the MID
@@ -132,6 +137,8 @@ Other modes print only measurements, or check what one card cannot show:
     python3 chip_smoke.py --bayer-ab       # the Bayer RAW kernel at other
                                            # step heights and block sizes,
                                            # and with one stage cut out
+    python3 chip_smoke.py --geodesic-ab    # the flood kernel with one
+                                           # stage cut out
     python3 chip_smoke.py --mesh-cards     # a host with several cards:
                                            # phase 12b over NCCL, one rank a
                                            # card, and `cli batch` spawned and
@@ -1316,6 +1323,70 @@ def jpeg_lane_extremes():
     return blocks.astype(np.int16), (grid_c, mcu_r, mcu_c)
 
 
+def jpeg_pack_extremes():
+    """Hand-fed (words int32 [N, 52], bits int32 [N]) for the pack kernel,
+    as the Huffman kernel leaves them (each block's bit string MSB-first in
+    its first ceil(bits / 32) words, zero after its last bit; the slot's
+    words after those hold seeded garbage, which the pack must ignore):
+    long runs of 0-bit blocks; runs of 1-6-bit blocks, so that 6-30 blocks
+    share one scan word; full 1664-bit blocks (all 52 words), back to back
+    and after 1-31-bit blocks, so that they land at every shift; blocks of
+    32k - 1, 32k and 32k + 1 bits. Returns [(what, words, bits)]: the
+    whole sequence with a total of an exact multiple of 32 bits, and the
+    same less its last block (a total that is not)."""
+    from rawphotoforge_tpu_torch.io import jpegbits
+
+    rng = np.random.default_rng(SEED + 19)
+    full = 32 * jpegbits.BLOCK_WORDS
+    lengths = [0] * 300
+    lengths += [int(v) for v in rng.integers(1, 7, 400)]
+    lengths += [0] * 50 + [full] * 4
+    for k in range(1, 32):
+        lengths += [k, full]
+    lengths += [32 * k + e for k in (1, 2, 26, 51) for e in (-1, 0, 1)]
+    lengths += [int(v) for v in rng.integers(1, 7, 64)] + [0] * 70 + [3] * 40
+    tail = (-sum(lengths)) % 32
+    if tail == 0:
+        lengths.append(16)
+        tail = 16
+    lengths.append(tail)
+    bits = np.asarray(lengths, np.int64)
+    n = bits.size
+    words = rng.integers(0, 1 << 32, (n, jpegbits.BLOCK_WORDS), dtype=np.uint64)
+    nw = (bits + 31) >> 5
+    j = np.arange(jpegbits.BLOCK_WORDS)[None, :]
+    # The block's last word keeps its high (bits - 32 (nw - 1)) bits.
+    keep = np.where(j < nw[:, None] - 1, 32,
+                    np.where(j == nw[:, None] - 1, bits[:, None] - 32 * (nw[:, None] - 1), 0))
+    coded = (words >> (32 - keep).astype(np.uint64)) << (32 - keep).astype(np.uint64)
+    coded = np.where(keep == 0, 0, coded)
+    words = np.where(j < nw[:, None], coded, words).astype(np.uint32).view(np.int32)
+    assert int(bits.sum()) % 32 == 0 and bits[:-1].sum() % 32 != 0
+    return [("pack extremes, total a multiple of 32", words, bits.astype(np.int32)),
+            ("pack extremes less the last block", words[:-1].copy(),
+             bits[:-1].astype(np.int32))]
+
+
+def scan_oracle(words, bits):
+    """The scan as one Python integer: each block's bit string appended,
+    MSB-first (an oracle independent of the twins' shift arithmetic).
+    Returns the scan's ceil(total / 32) words, u32 in int64."""
+    acc, total = 0, 0
+    for row, nb in zip(words.view(np.uint32), bits.tolist()):
+        if nb == 0:
+            continue
+        nw = -(-nb // 32)
+        v = 0
+        for word in row[:nw].tolist():
+            v = (v << 32) | word
+        acc = (acc << nb) | (v >> (32 * nw - nb))
+        total += nb
+    nwords = -(-total // 32)
+    acc <<= 32 * nwords - total
+    return np.asarray([(acc >> (32 * (nwords - 1 - i))) & 0xFFFFFFFF
+                       for i in range(nwords)], np.int64)
+
+
 def jpeg_scene(rng, h, w, dev):
     """A seeded smooth scene with texture, as the batch renders look."""
     import torch
@@ -1345,13 +1416,24 @@ def _entropy_vs_twins(blocks, grid_c, mcu_r, mcu_c, what):
     bit_identical(words, jpegenc._i32_bits(rwords), f"{what}: Huffman kernel words")
     bit_identical(bits, rbits.to(torch.int32), f"{what}: Huffman kernel bit lengths")
     check(int(bad) == int(rbad), f"{what}: out-of-domain {int(bad)} vs twin {int(rbad)}")
+    _pack_vs_twins(words, bits, what)
+    return words, bits, bad
+
+
+def _pack_vs_twins(words, bits, what):
+    """The pack kernel against its twins on CUDA (words, bits), packed and
+    prepacked: bit for bit."""
+    import torch
+
+    from rawphotoforge_tpu_torch.io import jpegbits, jpegenc
+    from rawphotoforge_tpu_torch.kernels import jpeg_wire as jw
+
     w64, b64 = words.to(torch.int64) & 0xFFFFFFFF, bits.to(torch.int64)
     for packed, twin in ((True, jpegbits.scan_from_words), (False, jpegbits.concat_words)):
         out = jw.pack(words, bits, packed=packed)
         torch.cuda.synchronize()
         bit_identical(out, jpegenc._i32_bits(twin(w64, b64)),
                       f"{what}: pack kernel ({'packed' if packed else 'prepacked'})")
-    return words, bits, bad
 
 
 def phase_jpeg_kernels(dev, card, log):
@@ -1402,6 +1484,19 @@ def phase_jpeg_kernels(dev, card, log):
                                  or set(LANE_TARGET_BITS) <= set(bits.tolist()))
               and np.array_equal(jpegbits.fetch_scan(scan, ref_words.size), ref_words)
               and int(bits.sum()) == ref_bits, f"lane extremes {grid}: scan vs packed_np")
+    for what, words_np, bits_np in jpeg_pack_extremes():
+        words = torch.from_numpy(words_np).to(dev)
+        bits = torch.from_numpy(bits_np).to(dev)
+        _pack_vs_twins(words, bits, what)
+        scan = jw.pack(words, bits, packed=True)
+        ref = scan_oracle(words_np, bits_np)
+        check(np.array_equal(jpegbits.fetch_scan(scan, ref.size).astype(np.int64)
+                             & 0xFFFFFFFF, ref), f"{what}: scan vs the serial oracle")
+    log(f"phase 9: pack extremes ({bits_np.size + 1} and {bits_np.size} hand-fed "
+        f"blocks: runs of 0-bit blocks, of 1-6-bit blocks, 1664-bit blocks at "
+        f"every shift, 32k-1/32k/32k+1 bits, garbage past each block's words, a "
+        f"total of a multiple of 32 bits and not): pack kernel == twins bit for "
+        f"bit, packed and prepacked; scans == the serial oracle")
     log(f"phase 9: hand-fed blocks (+-1023 ACs: {longest}-bit blocks of "
         f"the {32 * jpegbits.BLOCK_WORDS}-bit bound, +-2047 DC deltas, ZRL chains, "
         f"no-EOB, padding grids 3x2/2 and 3x1; lane extremes: 59-bit lanes over "
@@ -1489,7 +1584,10 @@ def jpeg_time_case(dev, rng, h, w):
     coefficient; the pack ~8 a word. This run's bit strings set the
     data-dependent bytes: the Huffman kernel must write the coded words
     (its interface writes every slot whole, 4 * 52 bytes a block); the pack
-    kernel must read them (its interface holds them in those slots)."""
+    call must read them (its interface holds them in those slots) and the
+    bit lengths, and write its whole output, the scan and its zero tail
+    (int32 [N * 52 + 1], which wire_packed_extent's contract holds).
+    "pack_inputs": the Huffman kernel's (words, bits)."""
     import torch
 
     from rawphotoforge_tpu_torch.io import jpegbits, jpegenc
@@ -1519,10 +1617,11 @@ def jpeg_time_case(dev, rng, h, w):
         "jpeg_pack_kernel": (
             lambda: jw.pack(words, bits, packed=True),
             lambda: jpegbits.scan_from_words(w64, bits64),
-            4 * nwords + 12 * n + 4 * total_words, slots + 12 * n + 4 * total_words,
-            8 * nwords),
+            4 * nwords + 4 * n + 4 * (n * jpegbits.BLOCK_WORDS + 1),
+            slots + 4 * n + 4 * (n * jpegbits.BLOCK_WORDS + 1), 8 * nwords),
         "packed_wire": lambda: jpegbits.wire_packed_extent(planes, qlum, qchr, h, w),
         "scan_words": total_words,
+        "pack_inputs": (words, bits),
     }
 
 
@@ -1837,11 +1936,20 @@ def staged_vendor_files(files, tmp, dev, card, log):
 
 # -- masks and exports (the regional-mask slice) -----------------------------
 
-# Phase 10's sweep shapes: small, odd, square, one row, one column; then the
-# MID level of a 6000x4000 photo (the editor floods at MID).
-GEODESIC_HW = ((37, 50), (61, 97), (128, 128), (1, 300), (300, 1))
+# Phase 10's sweep shapes: small, odd, square, one row, one column, a width
+# one past the MID width (not a multiple of the kernel's 32-chain tile),
+# chains longer than the kernel's ring of five 32-cell chunks (4000 rows,
+# 6000 columns: the walk back re-reads chunks the ring no longer holds);
+# then the MID level of a 6000x4000 photo (the editor floods at MID).
+GEODESIC_HW = ((37, 50), (61, 97), (128, 128), (1, 300), (300, 1), (853, 1281),
+               (4000, 96), (96, 6000))
 MID_HW = (853, 1280)
-FLOOD_SWEEPS = 4   # the editor's rounds: 16 launches a flood
+FLOOD_SWEEPS = 4   # the editor's rounds: one launch a flood
+# Shapes whose floods also run at other round counts, and those counts.
+GEODESIC_ROUNDS_HW = ((61, 97), (4000, 96), (96, 6000))
+GEODESIC_ROUNDS = (1, 12)
+# Where a flood gets a NaN pixel.
+GEODESIC_NAN_HW = ((61, 97), (4000, 96))
 
 
 def same_bits(a, b, what):
@@ -1903,12 +2011,52 @@ def library_flood(d, gv, gh, sweeps=FLOOD_SWEEPS):
     return d
 
 
+def sm_clock_mhz():
+    """The card's maximum SM clock (nvidia-smi clocks.max.sm), MHz."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60)
+    check(out.returncode == 0, f"nvidia-smi failed: {out.stderr.strip()}")
+    return float(out.stdout.strip().splitlines()[0])
+
+
+def geodesic_step_sass():
+    """The flood kernel's instructions from cuobjdump -sass of the built
+    library: the count of each opcode the walk's dependent step uses (FADD,
+    FMNMX), whether the min is the NaN-propagating one, and whether the
+    grid barrier's acquire invalidates L1 (CCTL). None without cuobjdump."""
+    from rawphotoforge_tpu_torch.kernels import geodesic
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(tool):
+        return None
+    out = subprocess.run([tool, "-sass", geodesic.BUILD["path"]], capture_output=True,
+                         text=True, timeout=120)
+    check(out.returncode == 0, f"cuobjdump failed: {out.stderr.strip()}")
+    ops = []
+    for ln in out.stdout.splitlines():
+        if ln.strip().startswith("/*") and "*/" in ln:
+            words = ln.split("*/", 1)[1].split("/*")[0].split()
+            if words and words[0].startswith("@"):
+                words = words[1:]
+            if words:
+                ops.append(" ".join(words))
+    count = lambda op: sum(1 for o in ops if o.split(".")[0].split()[0] == op)
+    return dict(FADD=count("FADD"), FMNMX=count("FMNMX"), CCTL=count("CCTL"),
+                nan_min=any("FMNMX" in o and ".NAN" in o for o in ops),
+                instructions=len(ops))
+
+
 def phase_geodesic_kernel(dev, card, log):
-    """Phase 10, part 1: the sweep kernel against its twin, bit for bit,
-    for every direction and for whole floods (corner seeds, a multi-seed set,
-    a NaN pixel) at GEODESIC_HW and at MID; then CUDA-event times of the
-    flood at MID, its column and row sweeps apart, beside the byte bound,
-    the twin's time and the PyTorch scans' time. Returns the kernel row."""
+    """Phase 10, part 1: the flood kernel against its twin, bit for bit,
+    for every direction (one launch each) and for whole floods (corner
+    seeds, a multi-seed set, a NaN pixel, 1 and 12 rounds; one launch
+    each) at GEODESIC_HW and at MID; then CUDA-event times of the flood at
+    MID and of its column and row sweeps alone, beside the byte bound (d,
+    gv, gh read once, d written once) and the chain bound (the dependent
+    add+min steps, their instructions read from the kernel's SASS, 4 cycles
+    each), one chain's measured step, the twin's time and the PyTorch
+    scans' time. Returns the kernel row."""
     import torch
 
     from rawphotoforge_tpu_torch.kernels import geodesic
@@ -1921,28 +2069,40 @@ def phase_geodesic_kernel(dev, card, log):
                                        rng.random((h, w)) * 40).astype(np.float32)).to(dev)
         for direction in geodesic.DIRECTIONS:
             ours, ref = d0.clone(), d0.clone()
+            before = geodesic.KERNEL_LAUNCHES["geodesic_sweep_kernel"]
             geodesic.sweep(ours, gv, gh, direction)
             torch.cuda.synchronize()
+            check(geodesic.KERNEL_LAUNCHES["geodesic_sweep_kernel"] == before + 1,
+                  f"{h}x{w} {direction}: not one launch")
             geodesic.sweep_ref(ref, gv, gh, direction)
             same_bits(ours, ref, f"{h}x{w} {direction} sweep vs twin")
         seed_sets = [[(0, 0)], [(h - 1, w - 1)], [(0, w - 1), (h - 1, 0), (h // 2, w // 2)]]
-        for k, seeds in enumerate(seed_sets):
-            nan = k == 2 and h == 61
-            if nan:
+        nan = (h, w) in GEODESIC_NAN_HW
+        rounds = [FLOOD_SWEEPS] * 3 + (list(GEODESIC_ROUNDS)
+                                       if (h, w) in GEODESIC_ROUNDS_HW else [])
+        for k, n_rounds in enumerate(rounds):
+            seeds = seed_sets[min(k, 2)]
+            with_nan = nan and k == 2
+            if with_nan:
                 gv, gh = geodesic_costs(rng, h, w, dev, nan=True)
             start = torch.full((h, w), BIG, device=dev)
             for y, x in seeds:
                 start[y, x] = 0.0
-            ours = geodesic.flood(start.clone(), gv, gh)
+            before = geodesic.KERNEL_LAUNCHES["geodesic_sweep_kernel"]
+            ours = geodesic.flood(start.clone(), gv, gh, n_rounds)
             torch.cuda.synchronize()
-            same_bits(ours, twin_flood(start.clone(), gv, gh),
-                      f"{h}x{w} flood from {seeds}" + (" (NaN pixel)" if nan else ""))
-            check(bool(torch.isnan(ours).any()) == nan, f"{h}x{w}: NaN propagation")
-        log(f"phase 10: geodesic sweep kernel {w}x{h}: down/up/right/left sweeps and "
-            f"floods ({FLOOD_SWEEPS * 4} sweeps) from corner, opposite-corner and "
-            f"3-seed sets == twin bit for bit"
-            + (" (one flood with a NaN pixel: NaN where the twin has NaN)"
-               if h == 61 else ""))
+            check(geodesic.KERNEL_LAUNCHES["geodesic_sweep_kernel"] == before + 1,
+                  f"{h}x{w} flood: not one launch")
+            same_bits(ours, twin_flood(start.clone(), gv, gh, n_rounds),
+                      f"{h}x{w} flood of {n_rounds} rounds from {seeds}"
+                      + (" (NaN pixel)" if with_nan else ""))
+            check(bool(torch.isnan(ours).any()) == (nan and k >= 2),
+                  f"{h}x{w}: NaN propagation")
+        log(f"phase 10: geodesic flood kernel {w}x{h}: down/up/right/left sweeps and "
+            f"floods of {sorted(set(rounds))} rounds (one launch each) from corner, "
+            f"opposite-corner and 3-seed sets == twin bit for bit"
+            + (" (from the 3-seed flood on, a NaN pixel: NaN where the twin has NaN)"
+               if nan else ""))
 
     # Times at MID.
     h, w = MID_HW
@@ -1958,22 +2118,46 @@ def phase_geodesic_kernel(dev, card, log):
                                   geodesic.sweep(d, gv, gh, "left")), reps=20) / 2
     plain = time_events(lambda: twin_flood(d.clone(), gv, gh), reps=1, warm=1)
     library = time_events(lambda: library_flood(d, gv, gh), reps=10)
-    # Each sweep reads d and its costs once and writes d once; 2 operations
-    # (an add and a min) a step.
-    col_bytes = 4 * (2 * h * w + (h - 1) * w)
-    row_bytes = 4 * (2 * h * w + h * (w - 1))
-    nbytes = 2 * FLOOD_SWEEPS * (col_bytes + row_bytes)
+    # One chain's step time on the card: a down sweep over one column of n
+    # cells, at two lengths (the difference takes out the launch).
+    steps_ns = {}
+    for n in (1 << 14, 1 << 17):
+        gcv = torch.rand((n - 1, 1), device=dev)
+        one = torch.rand((n, 1), device=dev)
+        steps_ns[n] = time_events(lambda: geodesic.sweep(
+            one, gcv, torch.empty((n, 0), device=dev), "down"), reps=5) * 1e6
+    step_ns = (steps_ns[1 << 17] - steps_ns[1 << 14]) / ((1 << 17) - (1 << 14))
+    # A flood reads d, gv and gh once and writes d once; 2 operations (an
+    # add and a min) a step.
+    nbytes = 4 * (2 * h * w + (h - 1) * w + h * (w - 1))
     ops = 2 * FLOOD_SWEEPS * 2 * ((h - 1) * w + h * (w - 1))
     t_bytes, t_ops = nbytes / PEAK_BYTES_S * 1e3, ops / PEAK_F32_S * 1e3
     bound = max(t_bytes, t_ops)
     by = "bytes" if t_bytes >= t_ops else "operations"
-    log(f"phase 10: geodesic flood {w}x{h} (MID), {4 * FLOOD_SWEEPS} launches: "
-        f"{flood_ms:.4f} ms; a column sweep (down/up) {col_ms:.4f} ms, a row sweep "
-        f"(right/left) {row_ms:.4f} ms; bound {bound:.4f} ms by {by} (bytes "
-        f"{nbytes / 1e6:.1f} MB -> {t_bytes:.4f} ms at 3.35 TB/s; ops {ops / 1e6:.1f} M "
-        f"-> {t_ops:.4f} ms); {100 * bound / flood_ms:.2f}% of roofline; plain twin "
-        f"(a torch loop over rows/columns) {plain:.2f} ms; library (torch.cumsum + "
-        f"torch.cummin a sweep) {library:.4f} ms [{card}]")
+    # The chain: each round walks a column 2 (H - 1) steps, then (after
+    # every column) a row 2 (W - 1) steps; a step is the dependent FADD and
+    # FMNMX, 4 cycles each (the CUDA C++ Programming Guide's latency of an
+    # arithmetic instruction from compute capability 7.x on), at the
+    # card's maximum SM clock.
+    chain_steps = FLOOD_SWEEPS * 2 * ((h - 1) + (w - 1))
+    sass = geodesic_step_sass()
+    mhz = sm_clock_mhz()
+    t_chain = chain_steps * 2 * 4 / (mhz * 1e6) * 1e3
+    log(f"phase 10: geodesic flood kernel SASS: {sass} (the walk's step: one FADD, "
+        f"one FMNMX{'.NAN' if sass and sass['nan_min'] else ''}); SM clock max "
+        f"{mhz:.0f} MHz; one chain's step on the card {step_ns:.3f} ns "
+        f"({step_ns * mhz / 1e3:.2f} cycles; a down sweep over 2^14 and 2^17 "
+        f"cells: {steps_ns[1 << 14] / 1e3:.2f} / {steps_ns[1 << 17] / 1e3:.2f} us) "
+        f"[{card}]")
+    log(f"phase 10: geodesic flood {w}x{h} (MID), {FLOOD_SWEEPS} rounds, one launch: "
+        f"{flood_ms:.4f} ms; a column sweep (down or up alone) {col_ms:.4f} ms, a row "
+        f"sweep (right or left) {row_ms:.4f} ms; chain bound {t_chain:.4f} ms "
+        f"({chain_steps} dependent steps x 8 cycles at {mhz:.0f} MHz), "
+        f"{100 * t_chain / flood_ms:.1f}% of it; byte bound {t_bytes:.4f} ms "
+        f"({nbytes / 1e6:.1f} MB at 3.35 TB/s; ops {ops / 1e6:.1f} M -> {t_ops:.4f} "
+        f"ms), {100 * bound / flood_ms:.2f}% of it; plain twin (a torch loop over "
+        f"rows/columns) {plain:.2f} ms; library (torch.cumsum + torch.cummin, a flood) "
+        f"{library:.4f} ms [{card}]")
     return dict(ms=flood_ms, plain_ms=plain, bound_ms=bound, bound_by=by,
                 library_ms=library, col_ms=col_ms, row_ms=row_ms)
 
@@ -2003,7 +2187,7 @@ def phase_masks_and_exports(dev, card, log, dng_path, arw_path):
     """Phase 10, part 2: this slice's path on a 6000x4000 session on the
     card, every launch count zeroed just before and read just after:
     add_similarity_mask (a point; labelled points), add_smart_mask (a point;
-    include + exclude: 16 + 32 geodesic launches, no twin call),
+    include + exclude: 1 + 2 geodesic launches, one a flood, no twin call),
     add_model_mask (an in-process stub on the card), mask_overlay_srgb at
     MID, a FULL render with the new masks, save_hdr_dng of it; then the FULL
     render against the exact-LUT anchor, the HDR DNG reopened by read_raw
@@ -2094,11 +2278,11 @@ def phase_masks_and_exports(dev, card, log, dng_path, arw_path):
     launches = dict(geodesic.KERNEL_LAUNCHES, develop=fused.LAUNCHES,
                     **rp.KERNEL_LAUNCHES, **jpeg_wire.KERNEL_LAUNCHES)  # run ends
     t_main = time.perf_counter() - t0
-    check(smart_launches == 4 * FLOOD_SWEEPS, f"one-point smart mask: {smart_launches} "
-          f"geodesic launches (want {4 * FLOOD_SWEEPS})")
-    check(launches["geodesic_sweep_kernel"] == 3 * 4 * FLOOD_SWEEPS,
-          f"geodesic launches {launches['geodesic_sweep_kernel']} (want "
-          f"{3 * 4 * FLOOD_SWEEPS}: one flood, then an include and an exclude flood)")
+    check(smart_launches == 1, f"one-point smart mask: {smart_launches} "
+          f"geodesic launches (want 1, one flood)")
+    check(launches["geodesic_sweep_kernel"] == 3,
+          f"geodesic launches {launches['geodesic_sweep_kernel']} (want 3: one "
+          f"flood, then an include and an exclude flood)")
     check(twin_calls[0] == 0, f"the geodesic twin ran {twin_calls[0]} times")
     check(launches["develop"] > 0, "the mask path never launched the develop kernel")
     log(f"phase 10: masks and exports on a {w}x{h} session (similarity x2, smart x2, "
@@ -2210,7 +2394,7 @@ def phase_server(dev, card, log, dng_path):
     engine/hostdev and held byte for byte against the same render made
     here), the swap (the era edit replayed; the MID preview byte for byte a
     direct editor's), drag ticks with the host drag on and off, MID
-    releases, a smart mask (16 geodesic launches a flood) and an async JPEG
+    releases, a smart mask (one geodesic launch a flood) and an async JPEG
     export (byte for byte the direct editor's save_bytes). An ungated open
     gives the open timings. Every launch count is zeroed just before and
     read just after, and no twin may run. Returns the path's launches by
@@ -2415,8 +2599,8 @@ def phase_server(dev, card, log, dng_path):
         before = geodesic.KERNEL_LAUNCHES["geodesic_sweep_kernel"]
         ms_smart, st, _, _ = _http(base, "/mask/add", smart)
         flood = geodesic.KERNEL_LAUNCHES["geodesic_sweep_kernel"] - before
-        check(st == 200 and flood == 4 * FLOOD_SWEEPS,
-              f"/mask/add smart: {flood} geodesic launches (want {4 * FLOOD_SWEEPS})")
+        check(st == 200 and flood == 1,
+              f"/mask/add smart: {flood} geodesic launches (want 1, one flood)")
         times["/mask/add smart (MID flood)"] = ms_smart
         regional = {"_target": "smart", "exposure": -0.5, "contrast": 15}
         _http(base, "/edit", regional)
@@ -3100,11 +3284,12 @@ def kernel_times(dev, card, jpeg_only=False):
     on the same cases. Each develop case is timed once more with its table
     packed once (``..._table_packed_once``); the three JPEG kernels and the
     packed wire run at 24 MP and 45.4 MP on jpeg_scene (``jpeg_only``:
-    only these, ``--kernel-times --jpeg``)."""
+    only these, ``--kernel-times --jpeg``), with the pack call's parts
+    alone; then the MID flood (both modes)."""
     import torch
 
     from rawphotoforge_tpu_torch.core.params import pack_params
-    from rawphotoforge_tpu_torch.kernels import fused, raw_pipeline as rp
+    from rawphotoforge_tpu_torch.kernels import fused, geodesic, raw_pipeline as rp
 
     times = {}
     planes, cases = develop_cases(dev) if not jpeg_only else (None, [])
@@ -3132,9 +3317,46 @@ def kernel_times(dev, card, jpeg_only=False):
                      "packed_wire"):
             call = case[name] if name == "packed_wire" else case[name][0]
             times[f"{name}_{w}x{h}"] = median_time(call)
+        for part, call in pack_parts(dev, *case["pack_inputs"]).items():
+            times[f"jpeg_pack_{part}_{w}x{h}"] = median_time(call)
         del case
         torch.cuda.empty_cache()
+    h, w = MID_HW
+    gv, gh = geodesic_costs(np.random.default_rng(SEED + 10), h, w, dev)
+    d = torch.full((h, w), 1e9, device=dev)
+    d[h // 2, w // 2] = 0.0
+    times[f"flood_{h}x{w}"] = median_time(lambda: geodesic.flood(d, gv, gh))
     return {"card": card, "root": ROOT, "ms": times}
+
+
+def pack_parts(dev, words, bits):
+    """The pack call's parts, each alone (the kernel through the library's
+    C entry, whose signature a parent tree shares): the zeroed output
+    (``torch.zeros`` of N * 52 + 1 words), the offsets (the cast, cumsum
+    and subtraction) and the kernel on precomputed offsets."""
+    import torch
+
+    from rawphotoforge_tpu_torch.io import jpegbits
+    from rawphotoforge_tpu_torch.kernels import jpeg_wire as jw
+
+    n = bits.shape[0]
+    size = n * jpegbits.BLOCK_WORDS + 1
+    lib, stream = jw.library(), torch.cuda.current_stream(dev).cuda_stream
+    bits64 = bits.to(torch.int64)
+    offsets = torch.cumsum(bits64, 0) - bits64
+    out = torch.zeros(size, dtype=torch.int32, device=dev)
+
+    def offsets_call():
+        b = bits.to(torch.int64)
+        return torch.cumsum(b, 0) - b
+
+    return {
+        "zeros": lambda: torch.zeros(size, dtype=torch.int32, device=dev),
+        "offsets": offsets_call,
+        "kernel_alone": lambda: lib.rpf_jpeg_pack_launch(
+            words.data_ptr(), bits.data_ptr(), offsets.data_ptr(), n, 1,
+            out.data_ptr(), stream),
+    }
 
 
 # --develop-ab: since no profiler runs on the card's machine, the develop
@@ -3333,6 +3555,73 @@ def jpeg_ab(dev, card, log):
         del src, dst
 
 
+# --geodesic-ab: the flood kernel built from a copy of csrc/ with a stage
+# cut out (wrong output; its time tells the stage's share): the walker's
+# chain (each step's min and add without the carry, so the steps do not
+# wait on each other), the copier's copies into shared memory, the
+# storer's stores of the results; and with 2 visits of copies in flight
+# instead of 3 (bit-identical).
+_AB_FWD = "      dv[i] = min_nan(dv[i], carry);\n      carry = dv[i] + cv[i];"
+_AB_BWD = "      dv[i] = min_nan(dv[i], carry + cv[i]);\n      carry = dv[i];"
+_AB_NO_WALKER = [("    if (role == kWalker) {\n      const int len", "    if (false) {\n      const int len"),
+                 ("    if (role == kWalker) {\n      put_back", "    if (false) {\n      put_back")]
+_AB_NO_COPIER = ("      if (needs_copy(v + kAhead)) {", "      if (false) {")
+_AB_NO_STORER = [("    } else if (v > 0) {\n      load_results", "    } else if (false) {\n      load_results"),
+                 ("    } else if (role == kStorer && v > 0) {", "    } else if (false) {")]
+GEODESIC_AB_VARIANTS = {
+    "shipped": [],
+    "without_chain": [(_AB_FWD, "      dv[i] = min_nan(dv[i], cv[i] + carry);"),
+                      (_AB_BWD, "      dv[i] = min_nan(dv[i], cv[i] + carry);")],
+    "without_copies": [("    copy16(sd + so + it * kStep, bd ? t.d + g : t.d, bd);\n"
+                        "    copy16(sc + so + it * kStep, bc ? t.c + g : t.d, bc);\n", "")],
+    "without_stores": [("    if (move_bytes<kRows>(t, k, it, lane, false))\n"
+                        "      *reinterpret_cast<float4*>(t.d + go + it * 4 * t.P) = v[it];\n",
+                        "")],
+    "ahead_2": [("constexpr int kAhead = 3;", "constexpr int kAhead = 2;")],
+    "walker_only": [_AB_NO_COPIER, *_AB_NO_STORER],
+    "copier_only": [*_AB_NO_WALKER, *_AB_NO_STORER],
+    "storer_only": [*_AB_NO_WALKER, _AB_NO_COPIER],
+    "barriers_only": [*_AB_NO_WALKER, _AB_NO_COPIER, *_AB_NO_STORER],
+}
+
+
+def geodesic_ab(dev, card, log):
+    """The flood kernel with each of GEODESIC_AB_VARIANTS: a MID flood (each
+    call clones d, 4.4 MB, inside the time), a MID column and row sweep and
+    a down sweep over one column of 2^15 cells (one chain)."""
+    import torch
+
+    from rawphotoforge_tpu_torch.kernels import geodesic
+
+    h, w = MID_HW
+    gv, gh = geodesic_costs(np.random.default_rng(SEED + 10), h, w, dev)
+    d = geodesic.flood(torch_full_seeded(dev, h, w), gv, gh)
+    n = 1 << 15
+    one, gcv = torch.rand((n, 1), device=dev), torch.rand((n - 1, 1), device=dev)
+    ab_run(geodesic, "geodesic.cu", "rpf_geodesic_flood_launch", GEODESIC_AB_VARIANTS,
+           [(f"flood_{h}x{w}", lambda: geodesic.flood(d.clone(), gv, gh)),
+            (f"down_{h}x{w}", lambda: _swept(geodesic, d, gv, gh, "down")),
+            (f"right_{h}x{w}", lambda: _swept(geodesic, d, gv, gh, "right")),
+            (f"down_{n}x1 (one chain)", lambda: _swept(
+                geodesic, one, gcv, torch.empty((n, 0), device=dev), "down"))],
+           card, log, "geodesic-ab")
+
+
+def torch_full_seeded(dev, h, w):
+    """A MID distance map: 1e9 everywhere but a seed at the centre."""
+    import torch
+
+    d = torch.full((h, w), 1e9, device=dev)
+    d[h // 2, w // 2] = 0.0
+    return d
+
+
+def _swept(geodesic, d, gv, gh, direction):
+    out = d.clone()
+    geodesic.sweep(out, gv, gh, direction)
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -3389,6 +3678,9 @@ def main() -> int:
         return 0
     if "--jpeg-ab" in sys.argv:
         jpeg_ab(dev, card, log)
+        return 0
+    if "--geodesic-ab" in sys.argv:
+        geodesic_ab(dev, card, log)
         return 0
     if "--mesh-cards" in sys.argv:
         mesh_cards(dev, card, log)
@@ -3451,9 +3743,11 @@ def main() -> int:
                 "(jnp, no Pallas: packed)"}
     rows += [(name, "rawphotoforge_tpu_torch/csrc/jpeg_encode.cu", jpeg_jnp[name],
               batch_launches[name], 0.0, row) for name, row in jpeg_rows.items()]
-    # The geodesic sweep replaces a lax.scan (no Pallas kernel); it is held
-    # to its twin bit for bit. Its times are one flood at MID (16 launches);
-    # library_ms is torch.cumsum + torch.cummin a sweep (two calls).
+    # The geodesic flood kernel replaces a lax.scan (no Pallas kernel); it
+    # is held to its twin bit for bit. Its times are one flood at MID (one
+    # launch); library_ms is torch.cumsum + torch.cummin for the same flood
+    # (two calls a sweep). bound_ms is the contract's bytes-or-operations
+    # bound; phase 10 logs the chain bound, which sets the flood, beside it.
     rows.append(("geodesic_sweep_kernel", "rawphotoforge_tpu_torch/csrc/geodesic.cu",
                  "rawphotoforge_tpu/ops/masking.py:123-199 (lax.scan, no Pallas)",
                  mask_launches["geodesic_sweep_kernel"], 0.0, geodesic_row))

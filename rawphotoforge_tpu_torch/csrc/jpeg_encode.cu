@@ -57,16 +57,21 @@
 //    block's 208-byte slot (io/jpegbits.BLOCK_WORDS). Coefficients outside
 //    the baseline domain (AC size > 10, DC delta size > 11) are counted in
 //    `bad`, as the JAX wire counts them, one atomicAdd per warp.
-//  jpeg_pack_kernel: one thread per block. Packed: the block's words shifted
-//    onto its exclusive global bit offset in the zeroed scan, atomicOr on its
-//    first and last scan words (which neighbours share; OR commutes, so the
-//    scan is deterministic), plain stores between. Prepacked: the block's
-//    words copied to its exclusive word offset.
+//  jpeg_pack_kernel: 8 lanes a block (4 blocks a warp; a block of the scan
+//    holds ~5 coded words at 24 MP q95, at most 52). Packed: the block's
+//    words shifted onto its exclusive global bit offset in the zeroed scan,
+//    the group reading them in one coalesced pass and forming each output
+//    word with a funnel shift of its word and its left neighbour's (taken
+//    by a shuffle); atomicOr on its first and last scan words (which
+//    neighbours share; OR commutes, so the scan is deterministic), plain
+//    stores between; longer blocks loop over the group. Prepacked: the
+//    block's words copied to its exclusive word offset by the same groups.
 //
 // What bounds them on the card: bytes. The blocks kernel reads 12 B/px of
 // planes and writes 2 B a coefficient (~0.11 ms for 24 MP at 3.35 TB/s);
 // the Huffman kernel reads the blocks and writes the 208-byte slots, the
-// pack kernel reads the slots' coded words and writes the scan.
+// pack kernel reads the slots' coded words and writes the scan (its call
+// also zero-fills the N * 52 + 1 words the scan's contract holds).
 //
 // The build uses exact division and no multiply-add contraction, so
 // jpeg_blocks_kernel equals its torch twin (io/jpegenc.py blockify) bit for
@@ -521,34 +526,52 @@ jpeg_huffman_kernel(const int16_t* __restrict__ blocks, int nmcu, int grid_c,
 
 // -- jpeg_pack_kernel ------------------------------------------------------------
 
+// A group of kPackLanes lanes a block, kPackGroups blocks a 256-thread CUDA
+// block. Lane g of the group takes the block's output words g, g + 8, ...
+// (packed: word j of the block's bits shifted onto its offset, j = 0 ..
+// last, formed from its words j and j - 1: lane g's own and its left
+// neighbour's, by a shuffle).
+constexpr int kPackLanes = 8;
+constexpr int kPackGroups = 256 / kPackLanes;
+
 __global__ void __launch_bounds__(256)
 jpeg_pack_kernel(const uint32_t* __restrict__ words,
                  const int32_t* __restrict__ bits,
-                 const int64_t* __restrict__ offsets, int64_t nblocks,
+                 const int64_t* __restrict__ offsets, int nblocks,
                  int packed, uint32_t* __restrict__ out) {
-  const int64_t b = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  const int b = blockIdx.x * kPackGroups + threadIdx.x / kPackLanes;
+  const int g = threadIdx.x % kPackLanes;
   if (b >= nblocks) return;
   const int nb = bits[b];
   if (nb == 0) return;
   const int nw = (nb + 31) >> 5;
-  const uint32_t* w = words + b * kBlockWords;
+  const uint32_t* w = words + static_cast<int64_t>(b) * kBlockWords;
   const int64_t off = offsets[b];
   if (!packed) {
-    for (int j = 0; j < nw; ++j) out[off + j] = w[j];
+    uint32_t* o = out + off;
+    for (int j = g; j < nw; j += kPackLanes) o[j] = w[j];
     return;
   }
-  const int64_t q = off >> 5;
+  // The group's lanes (it returns or loops as one, so they are all here).
+  const unsigned mask = 0xFFu << (threadIdx.x & 31 & ~(kPackLanes - 1));
+  uint32_t* o = out + (off >> 5);
   const int r = static_cast<int>(off & 31);
-  const int last = static_cast<int>(((off + nb - 1) >> 5) - q);
-  for (int j = 0; j <= last; ++j) {
-    uint32_t v = j < nw ? w[j] >> r : 0u;
-    if (r && j > 0) v |= w[j - 1] << (32 - r);
-    if (j == 0 || j == last) atomicOr(out + q + j, v);
-    else out[q + j] = v;
+  const int last = static_cast<int>((r + nb - 1) >> 5);
+  uint32_t carry = 0u;  // word j - 1 for lane 0: the previous pass's lane 7
+  for (int j0 = 0; j0 <= last; j0 += kPackLanes) {
+    const int j = j0 + g;
+    const uint32_t cur = j < nw ? w[j] : 0u;
+    uint32_t left = __shfl_up_sync(mask, cur, 1, kPackLanes);
+    if (g == 0) left = carry;
+    carry = __shfl_sync(mask, cur, kPackLanes - 1, kPackLanes);
+    // (left:cur) >> r: the bits of word j - 1 that spill into word j.
+    const uint32_t v = __funnelshift_r(cur, left, r);
+    if (j <= last) {
+      if (j == 0 || j == last) atomicOr(o + j, v);
+      else o[j] = v;
+    }
   }
 }
-
-int blocks_of(int64_t n) { return static_cast<int>((n + 255) / 256); }
 
 }  // namespace
 
@@ -616,11 +639,12 @@ extern "C" int rpf_jpeg_huffman_launch(const void* blocks, int64_t nblocks,
 extern "C" int rpf_jpeg_pack_launch(const void* words, const void* bits,
                                     const void* offsets, int64_t nblocks,
                                     int packed, void* out, void* stream) {
-  if (nblocks <= 0) return cudaErrorInvalidValue;
-  jpeg_pack_kernel<<<blocks_of(nblocks), 256, 0,
+  if (nblocks <= 0 || nblocks > (int64_t{1} << 30)) return cudaErrorInvalidValue;
+  const int n = static_cast<int>(nblocks);
+  jpeg_pack_kernel<<<(n + kPackGroups - 1) / kPackGroups, 256, 0,
                      static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint32_t*>(words), static_cast<const int32_t*>(bits),
-      static_cast<const int64_t*>(offsets), nblocks, packed,
+      static_cast<const int64_t*>(offsets), n, packed,
       static_cast<uint32_t*>(out));
   return static_cast<int>(cudaGetLastError());
 }

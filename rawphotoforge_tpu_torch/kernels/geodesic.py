@@ -1,16 +1,21 @@
-"""The geodesic flood's sweep kernel — CUDA C++ for Hopper — and its plain twin.
+"""The geodesic flood's kernel — CUDA C++ for Hopper — and its plain twin.
 
 Replaces the ``lax.scan`` sweeps of the JAX package's
 ``ops/masking.py:123-199`` (``_sweep_down`` and ``geodesic_distance``'s
 rounds; jnp, no Pallas kernel). The CUDA source is ``csrc/geodesic.cu``, one
-kernel, ``geodesic_sweep_kernel`` (``sweep``): one directional relaxation of
-a distance map ``d`` f32 [H, W] in place, ``d[y] = min(d[y], d[y-1] + c)``
-down, and likewise up, right and left, over the unpadded step costs ``gv``
-f32 [H-1, W] (vertical neighbours) and ``gh`` f32 [H, W-1] (horizontal).
-``flood`` runs ``sweeps`` rounds of the four directions: 4 launches a round.
+kernel, ``geodesic_sweep_kernel``: directional relaxations of a distance map
+``d`` f32 [H, W] in place, ``d[y] = min(d[y], d[y-1] + c)`` down, and
+likewise up, right and left, over the unpadded step costs ``gv`` f32
+[H-1, W] (vertical neighbours) and ``gh`` f32 [H, W-1] (horizontal).
+``flood`` runs ``sweeps`` rounds of the four directions in one launch (a
+thread walks each column down and back up, then each row right and back
+left, with a grid-wide barrier between the two); ``sweep`` runs one
+direction through the same kernel. The kernel reads rows ``pitch(W)``
+floats apart (16-byte aligned): ``ops/masking`` builds ``d``, ``gv`` and
+``gh`` so (``pitched_empty``); other arrays go through padded copies.
 
-Bound on the H100: bytes (d and the costs read once, d written once, 12 B/px
-a sweep); one thread walks each chain, so the kernel is far from it.
+Bound on the H100: the dependent chain (2 (H - 1) + 2 (W - 1) add+min steps
+a round, serial), not bytes (16 B/px a flood).
 
 The wrapper takes the twin for a CPU tensor and the kernel for a CUDA
 tensor; there is no fallback from one to the other. Each launch counts in
@@ -41,8 +46,8 @@ def library():
 
         lib, BUILD = build("rpf_geodesic", "geodesic.cu")
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.rpf_geodesic_sweep_launch.argtypes = [p, p, i, i, i, p]
-        lib.rpf_geodesic_sweep_launch.restype = ctypes.c_int
+        lib.rpf_geodesic_flood_launch.argtypes = [p, p, p, i, i, i, i, i, p, p]
+        lib.rpf_geodesic_flood_launch.restype = ctypes.c_int
         _LIB = lib
     return _LIB
 
@@ -84,35 +89,85 @@ def sweep_ref(d: torch.Tensor, gv: torch.Tensor, gh: torch.Tensor,
         raise ValueError(f"unknown sweep direction {direction!r}")
 
 
+def pitch(w: int) -> int:
+    """The kernel's row pitch for width ``w``: a multiple of 4 floats, so
+    that every row starts on a 16-byte boundary."""
+    return -(-w // 4) * 4
+
+
+def _pitched(t: torch.Tensor, p: int) -> torch.Tensor:
+    """``t`` [rows, cols] itself if its rows lie ``p`` floats apart in
+    16-byte aligned storage that holds them whole; else a copy that does
+    (zeros in the padding)."""
+    rows, cols = t.shape
+    if (t.stride(-1) == 1 and (rows <= 1 or t.stride(0) == p) and t.data_ptr() % 16 == 0
+            and t.untyped_storage().nbytes() >= 4 * (t.storage_offset() + rows * p)):
+        return t
+    out = torch.zeros((rows, p), dtype=t.dtype, device=t.device)
+    out[:, :cols] = t
+    return out
+
+
+def pitched_empty(h: int, w: int, device, width: int | None = None) -> torch.Tensor:
+    """An f32 [h, w] view whose rows lie ``pitch(width)`` floats apart
+    (``width`` the flood's W, ``w`` by default): ``d``, ``gv`` or ``gh`` as
+    the kernel takes them without a copy."""
+    p = pitch(w if width is None else width)
+    return torch.empty((h, p), dtype=torch.float32, device=device)[:, :w]
+
+
+def _launch(d, gv, gh, rounds: int, only: int) -> None:
+    """One launch of ``geodesic_sweep_kernel`` on CUDA tensors: ``rounds``
+    rounds (only = -1) or the one direction ``DIRECTIONS[only]``. Arrays
+    whose rows do not lie pitch(W) floats apart go through padded copies
+    (``d`` copied back after)."""
+    if d.stride(-1) != 1:
+        raise ValueError("d must be contiguous: the kernel relaxes it in place")
+    h, w = d.shape
+    p = pitch(w)
+    if h * p >= 1 << 31:
+        raise ValueError(f"d {h}x{w} has 2^31 cells or more (the kernel "
+                         "indexes in int32)")
+    work = _pitched(d, p)
+    gv, gh = _pitched(gv, p), _pitched(gh, p)
+    # The grid barrier's arrival counter, zeroed for each flood.
+    barrier = torch.zeros(1, dtype=torch.int32, device=d.device) if only < 0 else None
+    with torch.cuda.device(d.device):
+        err = library().rpf_geodesic_flood_launch(
+            work.data_ptr(), gv.data_ptr(), gh.data_ptr(), h, w, p, rounds, only,
+            None if barrier is None else barrier.data_ptr(),
+            torch.cuda.current_stream(d.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"geodesic_sweep_kernel launch failed: CUDA error {err}")
+    KERNEL_LAUNCHES["geodesic_sweep_kernel"] += 1
+    if work.data_ptr() != d.data_ptr():
+        d.copy_(work[:, :w])
+
+
 def sweep(d: torch.Tensor, gv: torch.Tensor, gh: torch.Tensor,
           direction: str) -> None:
     """One directional relaxation of ``d`` (contiguous f32 [H, W]) in place:
-    the twin for a CPU tensor, ``geodesic_sweep_kernel`` for a CUDA one."""
+    the twin for a CPU tensor, one ``geodesic_sweep_kernel`` launch for a
+    CUDA one."""
     _check_inputs(d, gv, gh)
     if direction not in DIRECTIONS:
         raise ValueError(f"unknown sweep direction {direction!r}")
     if d.device.type == "cpu":
         sweep_ref(d, gv, gh, direction)
         return
-    if not d.is_contiguous():
-        raise ValueError("d must be contiguous: the kernel relaxes it in place")
-    k = DIRECTIONS.index(direction)
-    cost = (gv if k < 2 else gh).contiguous()
-    h, w = d.shape
-    with torch.cuda.device(d.device):
-        err = library().rpf_geodesic_sweep_launch(
-            d.data_ptr(), cost.data_ptr(), h, w, k,
-            torch.cuda.current_stream(d.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"geodesic_sweep_kernel launch failed: CUDA error {err}")
-    KERNEL_LAUNCHES["geodesic_sweep_kernel"] += 1
+    _launch(d, gv, gh, 1, DIRECTIONS.index(direction))
 
 
 def flood(d: torch.Tensor, gv: torch.Tensor, gh: torch.Tensor,
           sweeps: int = 4) -> torch.Tensor:
     """``sweeps`` rounds of down, up, right, left over ``d`` (relaxed in
-    place and returned): 4 * sweeps sweeps."""
-    for _ in range(sweeps):
-        for direction in DIRECTIONS:
-            sweep(d, gv, gh, direction)
+    place and returned): the twin's 4 * sweeps sweeps for a CPU tensor, one
+    ``geodesic_sweep_kernel`` launch for a CUDA one."""
+    _check_inputs(d, gv, gh)
+    if d.device.type == "cpu":
+        for _ in range(sweeps):
+            for direction in DIRECTIONS:
+                sweep_ref(d, gv, gh, direction)
+    elif sweeps > 0:
+        _launch(d, gv, gh, sweeps, -1)
     return d

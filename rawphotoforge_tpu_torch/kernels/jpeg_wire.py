@@ -28,7 +28,10 @@ shared memory (no tensor cores: their sums would round otherwise). The
 Huffman kernel is a warp per block (a wave of 6-warp blocks, an MCU at a
 time): one coalesced load of the block, a ballot for the zero runs, a
 shuffle scan for the bit offsets, the words assembled in shared memory and
-stored as 16-byte vectors into the block's 52-word slot. Words are u32 bit
+stored as 16-byte vectors into the block's 52-word slot. The pack kernel
+is 8 lanes a block: one coalesced pass over the block's coded words, each
+output word a funnel shift of a word and its neighbour's (a shuffle),
+``atomicOr`` only on the block's first and last scan words. Words are u32 bit
 patterns in int32 tensors on every device; the blocks kernel's output and
 the Huffman kernel's slots must be 16-byte aligned, as ``torch.empty``
 gives them (a misaligned tensor raises).
@@ -176,8 +179,8 @@ def pack(words: torch.Tensor, bits: torch.Tensor, packed: bool = True) -> torch.
     if words.shape != (n, jpegbits.BLOCK_WORDS) or n == 0:
         raise ValueError(f"expected words [{n}, {jpegbits.BLOCK_WORDS}], got "
                          f"{tuple(words.shape)}")
-    bits64 = bits.to(torch.int64)
     if _device(words, "JPEG pack") == "cpu":
+        bits64 = bits.to(torch.int64)
         w64 = words.to(torch.int64) & 0xFFFFFFFF
         out = (jpegbits.scan_from_words(w64, bits64) if packed
                else jpegbits.concat_words(w64, bits64))
@@ -185,6 +188,7 @@ def pack(words: torch.Tensor, bits: torch.Tensor, packed: bool = True) -> torch.
     if words.dtype != torch.int32 or bits.dtype != torch.int32:
         raise ValueError("words and bits must be int32")
     words, bits = words.contiguous(), bits.contiguous()
+    bits64 = bits.to(torch.int64)
     step = bits64 if packed else (bits64 + 31) >> 5
     offsets = torch.cumsum(step, 0) - step
     size = n * jpegbits.BLOCK_WORDS + (1 if packed else 0)

@@ -106,15 +106,19 @@ def similarity_mask_points(planes: torch.Tensor, points_yx, labels,
 def step_costs(planes: torch.Tensor, edge_weight: float, spatial_cost: float):
     """The flood's step costs ``||OKLab(p) - OKLab(q)|| * edge_weight +
     spatial_cost`` between vertical neighbours (gv f32 [H-1, W]) and
-    horizontal ones (gh f32 [H, W-1])."""
+    horizontal ones (gh f32 [H, W-1]), each a view whose rows lie
+    ``kernels/geodesic.pitch(W)`` floats apart (the flood kernel's layout)."""
     L, A, B = _oklab(planes)
     ew, sc = _f32(edge_weight), _f32(spatial_cost)
 
     def grad_cost(dim):
         dl, da, db = (torch.diff(c, dim=dim) for c in (L, A, B))
-        return torch.sqrt(dl * dl + da * da + db * db) * ew + sc
+        g = torch.sqrt(dl * dl + da * da + db * db) * ew
+        # Rows geodesic.pitch(W) floats apart, as the flood kernel takes them.
+        out = geodesic.pitched_empty(*g.shape, planes.device, planes.shape[-1])
+        return torch.add(g, sc, out=out)
 
-    return grad_cost(0).contiguous(), grad_cost(1).contiguous()
+    return grad_cost(0), grad_cost(1)
 
 
 def geodesic_distance(planes: torch.Tensor, point_yx, edge_weight: float,
@@ -128,7 +132,7 @@ def geodesic_distance(planes: torch.Tensor, point_yx, edge_weight: float,
     result converges to the Dijkstra solution as sweeps grow."""
     _, h, w = planes.shape
     gv, gh = step_costs(planes, edge_weight, spatial_cost)
-    d = torch.full((h, w), BIG, dtype=torch.float32, device=planes.device)
+    d = geodesic.pitched_empty(h, w, planes.device).fill_(BIG)
     for y, x in _pixels(point_yx, h, w).tolist():
         d[y, x] = 0.0
     return geodesic.flood(d, gv, gh, sweeps)

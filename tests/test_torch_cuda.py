@@ -1,5 +1,5 @@
-"""The hand-written CUDA kernels (develop, RAW Bayer and X-Trans) against
-their plain torch twins, on the card. Every test here needs a CUDA device
+"""The hand-written CUDA kernels (develop, RAW Bayer and X-Trans, the JPEG
+wires, the geodesic flood) against their plain torch twins, on the card. Every test here needs a CUDA device
 and skips without one (the kernels have no CPU mode). The file imports
 neither jax nor the test helpers (only chip_smoke.py's case builders), so
 on a machine without jax it runs on its own:
@@ -421,6 +421,26 @@ def test_jpeg_edge_blocks_on_the_card(dev):
     assert int(bad) > 0
 
 
+def test_jpeg_pack_extremes_on_the_card(dev):
+    """Hand-fed (words, bits) through the pack kernel, packed and
+    prepacked, against its twins and the serial oracle: runs of 0-bit and
+    of 1-6-bit blocks, 1664-bit blocks at every shift, garbage past each
+    block's words, totals on and off a multiple of 32 bits."""
+    from chip_smoke import _pack_vs_twins, jpeg_pack_extremes, scan_oracle
+    from rawphotoforge_tpu_torch.io import jpegbits
+    from rawphotoforge_tpu_torch.kernels import jpeg_wire as jw
+
+    for what, words, bits in jpeg_pack_extremes():
+        before = jw.KERNEL_LAUNCHES["jpeg_pack_kernel"]
+        _pack_vs_twins(torch.from_numpy(words).to(dev), torch.from_numpy(bits).to(dev),
+                       what)
+        assert jw.KERNEL_LAUNCHES["jpeg_pack_kernel"] == before + 2
+        scan = jw.pack(torch.from_numpy(words).to(dev), torch.from_numpy(bits).to(dev))
+        ref = scan_oracle(words, bits)
+        got = jpegbits.fetch_scan(scan, ref.size).astype(np.int64) & 0xFFFFFFFF
+        assert np.array_equal(got, ref), what
+
+
 @pytest.mark.parametrize("h,w,true_shape", [(61, 97, None), (128, 128, (100, 72))])
 def test_jpeg_wires_byte_identical_on_the_card(dev, h, w, true_shape):
     """The packed, prepacked and nibble wires give one file on the card,
@@ -445,7 +465,7 @@ def test_jpeg_wires_byte_identical_on_the_card(dev, h, w, true_shape):
         assert im.size == (tw, th)
 
 
-# -- the geodesic sweep kernel (csrc/geodesic.cu) --------------------------------
+# -- the geodesic flood kernel (csrc/geodesic.cu) --------------------------------
 
 def _geodesic_inputs(dev, h, w, seed=0, nan=False):
     from rawphotoforge_tpu_torch.ops import masking
@@ -487,10 +507,59 @@ def test_geodesic_flood_bit_identical_to_twin(dev, h, w, seeds, nan):
     d0 = torch.full((h, w), BIG, device=dev)
     for y, x in seeds:
         d0[y, x] = 0.0
+    before = geodesic.KERNEL_LAUNCHES["geodesic_sweep_kernel"]
     ours = geodesic.flood(d0.clone(), gv, gh)
     torch.cuda.synchronize()
+    assert geodesic.KERNEL_LAUNCHES["geodesic_sweep_kernel"] == before + 1
     same_bits(ours, twin_flood(d0.clone(), gv, gh), f"{h}x{w} flood from {seeds}")
     assert bool(torch.isnan(ours).any()) == nan
+
+
+@pytest.mark.parametrize("h,w,seeds,nan", [
+    (853, 1281, [(0, 1280)], False), (4000, 96, [(3999, 0), (10, 95)], True),
+    (96, 6000, [(50, 5999)], False), (61, 97, [(30, 40)], False)])
+@pytest.mark.parametrize("sweeps", [1, 12])
+def test_geodesic_flood_rounds_and_long_chains_bit_identical_to_twin(
+        dev, h, w, seeds, nan, sweeps):
+    """One launch a flood at 1 and 12 rounds: a width off the 32-chain tile,
+    chains longer than the kernel's ring of chunks (the walk back re-reads
+    the chunks the ring no longer holds), a NaN pixel on the tall shape."""
+    from rawphotoforge_tpu_torch.kernels import geodesic
+    from rawphotoforge_tpu_torch.ops.masking import BIG
+
+    gv, gh = _geodesic_inputs(dev, h, w, seed=h + w, nan=nan)
+    d0 = torch.full((h, w), BIG, device=dev)
+    for y, x in seeds:
+        d0[y, x] = 0.0
+    before = geodesic.KERNEL_LAUNCHES["geodesic_sweep_kernel"]
+    ours = geodesic.flood(d0.clone(), gv, gh, sweeps)
+    torch.cuda.synchronize()
+    assert geodesic.KERNEL_LAUNCHES["geodesic_sweep_kernel"] == before + 1
+    same_bits(ours, twin_flood(d0.clone(), gv, gh, sweeps),
+              f"{h}x{w} flood of {sweeps} rounds from {seeds}")
+    assert bool(torch.isnan(ours).any()) == nan
+
+
+@pytest.mark.parametrize("h,w", [(61, 97), (64, 128), (1, 9), (9, 1)])
+def test_geodesic_flood_takes_contiguous_and_pitched_arrays(dev, h, w):
+    """The kernel reads rows pitch(W) floats apart: contiguous arrays go
+    through padded copies (d copied back), pitched views are read in place;
+    both floods equal the twin's bit for bit."""
+    from rawphotoforge_tpu_torch.kernels import geodesic
+    from rawphotoforge_tpu_torch.ops.masking import BIG
+
+    gv, gh = _geodesic_inputs(dev, h, w, seed=w)
+    for t in (gv, gh):
+        assert t.numel() == 0 or t.shape[0] == 1 or t.stride(0) == geodesic.pitch(w)
+    d0 = torch.full((h, w), BIG, device=dev)
+    d0[h // 2, w // 2] = 0.0
+    pitched = geodesic.pitched_empty(h, w, dev).copy_(d0)
+    flat = geodesic.flood(d0.clone(), gv.contiguous(), gh.contiguous())
+    geodesic.flood(pitched, gv, gh)
+    torch.cuda.synchronize()
+    ref = twin_flood(d0.clone(), gv, gh)
+    same_bits(flat, ref, f"{h}x{w} flood of contiguous arrays")
+    same_bits(pitched, ref, f"{h}x{w} flood of pitched views")
 
 
 def test_geodesic_cuda_tensors_never_reach_the_twin(dev, monkeypatch):
@@ -507,7 +576,7 @@ def test_geodesic_cuda_tensors_never_reach_the_twin(dev, monkeypatch):
     before = geodesic.KERNEL_LAUNCHES["geodesic_sweep_kernel"]
     ed.add_smart_mask("s", (20, 40), tolerance=0.3)
     ed.add_smart_mask("t", points_xy=[(20, 40), (140, 40)], labels=[1, 0])
-    assert geodesic.KERNEL_LAUNCHES["geodesic_sweep_kernel"] == before + 16 + 32
+    assert geodesic.KERNEL_LAUNCHES["geodesic_sweep_kernel"] == before + 1 + 2
     cpu = Ed.from_rgb_f32(img, device="cpu", mid_long_edge=80, low_long_edge=40)
     monkeypatch.undo()
     cpu.add_smart_mask("s", (20, 40), tolerance=0.3)

@@ -194,6 +194,43 @@ def test_prepack_lane_extremes_match_jax_oracle(padded):
     assert bool(((ends % 32 == 0) & (length > 0) & (ends < bits[:, None])).any())
 
 
+@pytest.mark.parametrize("case", [0, 1])
+def test_pack_extremes_match_the_serial_chop(case):
+    """chip_smoke.jpeg_pack_extremes (the card's hand-fed pack inputs: runs
+    of 0-bit and 1-6-bit blocks, 1664-bit blocks at every shift, garbage
+    past each block's words, totals on and off a multiple of 32 bits)
+    through jpeg_wire.pack on the CPU (the twins): the packed scan is the
+    strings appended as one integer and chopped by the JAX package's
+    _chop_words_np, and chip_smoke.scan_oracle; prepacked, each block's
+    words chopped alone; both zero-tailed."""
+    from chip_smoke import jpeg_pack_extremes, scan_oracle
+
+    what, words, bits = jpeg_pack_extremes()[case]
+    acc, total, pre = 0, 0, []
+    for row, nb in zip(words.view(np.uint32), bits.tolist()):
+        nw = -(-nb // 32)
+        v = 0
+        for word in row[:nw].tolist():
+            v = (v << 32) | word
+        v >>= 32 * nw - nb
+        acc, total = (acc << nb) | v, total + nb
+        pre += jbits._chop_words_np(v, nb)
+    chop = np.asarray(jbits._chop_words_np(acc, total), np.uint32)
+    assert (total % 32 == 0) == (case == 0)
+    before = dict(jpeg_wire.KERNEL_LAUNCHES)
+    scan = jpeg_wire.pack(torch.from_numpy(words), torch.from_numpy(bits)).numpy()
+    flat = jpeg_wire.pack(torch.from_numpy(words), torch.from_numpy(bits),
+                          packed=False).numpy()
+    assert jpeg_wire.KERNEL_LAUNCHES == before
+    assert scan.size == words.size + 1 and flat.size == words.size
+    np.testing.assert_array_equal(scan.view(np.uint32)[: chop.size], chop)
+    np.testing.assert_array_equal(chop.astype(np.int64), scan_oracle(words, bits))
+    assert not scan[chop.size:].any()
+    np.testing.assert_array_equal(flat.view(np.uint32)[: len(pre)],
+                                  np.asarray(pre, np.uint32))
+    assert not flat[len(pre):].any()
+
+
 def test_huffman_wrapper_is_the_twin_on_the_cpu():
     """On a CPU tensor jpeg_wire.huffman and .pack run the twins (no
     launch counted): the masked DC chain, the 52-word strings, and the scan

@@ -163,6 +163,78 @@ def test_nan_pixel_floods_as_in_jax():
     assert np.isnan(ours).all()
 
 
+def _chainwise_flood(d, gv, gh, sweeps):
+    """The flood in the card kernel's order, float32 numpy, cell by cell:
+    each column walked down and straight back up, one column after another,
+    then each row right and straight back left; a NaN operand of the min
+    propagates."""
+    d = d.copy()
+    h, w = d.shape
+    with np.errstate(invalid="ignore"):
+        for _ in range(sweeps):
+            for x in range(w):
+                col = d[:, x]
+                for y in range(1, h):
+                    col[y] = np.minimum(col[y], col[y - 1] + gv[y - 1, x])
+                for y in range(h - 2, -1, -1):
+                    col[y] = np.minimum(col[y], col[y + 1] + gv[y, x])
+            for y in range(h):
+                row = d[y]
+                for x in range(1, w):
+                    row[x] = np.minimum(row[x], row[x - 1] + gh[y, x - 1])
+                for x in range(w - 2, -1, -1):
+                    row[x] = np.minimum(row[x], row[x + 1] + gh[y, x])
+    return d
+
+
+@pytest.mark.parametrize("h,w,seeds", [(23, 31, (11, 15)), (9, 40, [(0, 39), (8, 0)]),
+                                       (37, 6, (36, 5))])
+@pytest.mark.parametrize("sweeps", [1, 4, 12])
+@pytest.mark.parametrize("nan", [False, True])
+def test_chainwise_flood_is_the_twins_flood(h, w, seeds, sweeps, nan):
+    """Walking each chain forward and straight back (the card kernel's
+    fusion of down with up and of right with left) is the twin's flood bit
+    for bit, NaN positions included, and meets JAX's geodesic_distance at
+    the flood's rtol 1e-4."""
+    planes = _planes(17 + h, h, w, lo=0.05, span=0.9)
+    if nan:
+        planes[1, h // 2, w // 3] = np.nan
+    gv, gh = (t.numpy() for t in tm.step_costs(_t(planes), 12.0, 0.002))
+    d0 = np.full((h, w), tm.BIG, np.float32)
+    for y, x in np.asarray(seeds).reshape(-1, 2):
+        d0[y, x] = 0.0
+    want = _chainwise_flood(d0, gv, gh, sweeps)
+    got = tm.geodesic_distance(_t(planes), seeds, 12.0, 0.002, sweeps=sweeps).numpy()
+    np.testing.assert_array_equal(np.isnan(got), np.isnan(want))
+    assert np.isnan(want).any() == nan
+    ok = ~np.isnan(want)
+    np.testing.assert_array_equal(got[ok].view(np.int32), want[ok].view(np.int32))
+    np.testing.assert_allclose(want, _jax_geodesic(planes, seeds, 12.0, 0.002, sweeps),
+                               rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("h,w", [(5, 8), (5, 9), (1, 3), (4, 1)])
+def test_flood_arrays_are_pitched_views(h, w):
+    """step_costs and geodesic_distance hand the flood views whose rows lie
+    geodesic.pitch(W) floats apart (a multiple of 4), the layout the card
+    kernel reads in place; _pitched keeps such a view and pads a copy of a
+    contiguous array whose rows are not."""
+    p = geodesic.pitch(w)
+    assert p % 4 == 0 and w <= p < w + 4
+    gv, gh = tm.step_costs(_t(_planes(3, h, w)), 12.0, 0.002)
+    assert gv.shape == (h - 1, w) and gh.shape == (h, w - 1)
+    for t in (gv, gh):
+        if t.numel():
+            assert t.stride(-1) == 1 and (t.shape[0] <= 1 or t.stride(0) == p)
+            assert geodesic._pitched(t, p) is t
+    flat = torch.arange(h * w, dtype=torch.float32).reshape(h, w)
+    padded = geodesic._pitched(flat, p)
+    assert (padded is flat) == (p == w or h == 0)
+    assert torch.equal(padded[:, :w], flat) and not padded[:, w:].any()
+    d = tm.geodesic_distance(_t(_planes(3, h, w)), (0, 0), 12.0, 0.002)
+    assert d.shape == (h, w) and (h == 1 or d.stride(0) == p) and d[0, 0] == 0.0
+
+
 def test_sweep_wrapper_checks_its_inputs():
     d = torch.zeros((4, 5))
     gv, gh = torch.zeros((3, 5)), torch.zeros((4, 4))
