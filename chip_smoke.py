@@ -128,6 +128,21 @@ Phases (any failure raises, and the script exits non-zero):
     launches of each kernel on the path (no twin call). First, the
     transfers: utils/transfer's put_np and fetch_np against plain torch
     copies of the same 24 MP arrays (host clock).
+ 13. the card fuzz (tools/torch_card_fuzz.py) at reduced counts: 6 random
+    full-parameter develop draws (M in {1, 2, 3}) against the exact-LUT
+    anchor (assert_fuzz_close, the staircase gate), 2 slot-elision draws,
+    2 Bayer and 1 X-Trans RAW draws against the composed path, 1 each of
+    identity_oklch and a tone curve on it (3e-3), and 1 each of the nibble,
+    prepacked and packed JPEG wires against their numpy mirrors (three
+    files byte-identical); every kernel call bit for bit its twin. Prints
+    each part's worst deviation and twin equality; a failed seed fails.
+ 14. the 16-bit PNG open: a seeded 6000x4000 48-bit PNG with mixed row
+    filters (half Paeth) written here, opened as a user does
+    (PhotoEditor.open on the card, then `cli develop` to a 16-bit PPM): the
+    session's planes equal to the source's, the render against the
+    exact-LUT anchor, the file equal to the in-process render; the open's host ms split into
+    inflate, the native unfilter, the rest of the decode and upload (the
+    numpy unfilter only on the first 32 rows, against the native one).
 
 Other modes print only measurements, or check what one card cannot show:
 
@@ -3185,6 +3200,167 @@ def phase_mesh(dev, card, log):
     return launches
 
 
+# -- the card fuzz (phase 13) ------------------------------------------------------
+
+# Phase 13's seeds a part; tools/torch_card_fuzz.py runs 24, 8, 8, 4, 4, 4,
+# 4, 4 and 4 by default.
+CARD_FUZZ_COUNTS = {"fused": 6, "slots": 2, "raw": 2, "xtrans": 1, "identity": 1,
+                    "tone": 1, "sparse": 1, "prepacked": 1, "packed": 1}
+
+
+def load_card_fuzz():
+    """tools/torch_card_fuzz.py as a module (tools/ is not a package)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "torch_card_fuzz", os.path.join(ROOT, "tools", "torch_card_fuzz.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def phase_card_fuzz(dev, card, log):
+    """Phase 13: tools/torch_card_fuzz.py at CARD_FUZZ_COUNTS: random
+    full-parameter draws through every kernel, each against its reference
+    and bit for bit against its twin; any failed seed fails the run."""
+    fuzz = load_card_fuzz()
+    t0 = time.perf_counter()
+    result = fuzz.run(dev, CARD_FUZZ_COUNTS, log=lambda m: log(f"phase 13: {m}"))
+    for key, _, _ in fuzz.PARTS:
+        part = result[key]
+        worst = ", ".join(f"{k} {v:.3e}" for k, v in part.items()
+                          if k.startswith("worst_"))
+        log(f"phase 13: {key}: {part['seeds']} seeds, {part['fails']} failed"
+            + (f"; {worst}" if worst else "")
+            + f"; every kernel == its twin bit for bit: {part.get('twin_equal')}")
+    check(result["ok"], "phase 13: a card-fuzz seed failed")
+    log(f"phase 13: card fuzz passed in {time.perf_counter() - t0:.1f} s [{card}]")
+
+
+# -- the 16-bit PNG open (phase 14) --------------------------------------------------
+
+PNG_ORACLE_ROWS = 32   # rows the numpy unfilter checks at 24 MP (it loops in Python)
+PNG_FLAGS = ["--exposure", "0.4", "--contrast", "15", "--shadow", "20",
+             "--wb-temperature", "10", "--vignette", "25",
+             "--brightness-curve", "0:0,20000:26000,65535:65535",
+             "--hue-curve", "0:2000,40000:41000,65535:64000"]
+
+
+def png_filter_types(n):
+    """Row filters of phase 14's PNG: even rows Paeth, odd rows cycling
+    None, Sub, Up, Average."""
+    y = np.arange(n)
+    return np.where(y % 2 == 0, 4, (y // 2) % 4).astype(np.uint8)
+
+
+def phase_png_open(dev, card, log):
+    """Phase 14: a 6000x4000 48-bit PNG with mixed row filters (half of
+    them Paeth) opened as a user does (PhotoEditor.open on the card, then
+    `cli develop` to a 16-bit PPM): the session's planes equal to the
+    source's, the render against the exact-LUT anchor, the open's host ms
+    split into inflate, native unfilter, the rest of the decode and upload;
+    the numpy unfilter only on the first rows. Returns the path's
+    launches."""
+    import zlib
+
+    import torch
+
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    import torch_fixtures as fx
+
+    from rawphotoforge_tpu_torch import native
+    from rawphotoforge_tpu_torch.app import cli
+    from rawphotoforge_tpu_torch.engine.editor import FULL, PhotoEditor
+    from rawphotoforge_tpu_torch.io import image_io
+
+    h, w = PHOTO_HW
+    rng = np.random.default_rng(SEED + 14)
+    t0 = time.perf_counter()
+    src = np.ascontiguousarray((np.clip(fx.scene(rng, h, w, texture=0.05), 0, 1)
+                                * 65535).astype(np.uint16).transpose(1, 2, 0))
+    raw = fx.png48_raw(src, png_filter_types)
+    data = fx.png48_bytes(src, level=6, raw=raw)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_png_")
+    path, out_ppm = os.path.join(tmp, "photo.png"), os.path.join(tmp, "out.ppm")
+    with open(path, "wb") as f:
+        f.write(data)
+    paeth = float((png_filter_types(h) == 4).mean())
+    log(f"phase 14: wrote a {w}x{h} 48-bit PNG ({len(data) / 1e6:.1f} MB, "
+        f"{100 * paeth:.0f}% Paeth rows, the others None/Sub/Up/Average) in "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    # The numpy oracle only on the first rows: at this size it takes minutes.
+    stride, n = w * 6, PNG_ORACLE_ROWS
+    grid = np.frombuffer(raw, np.uint8, count=n * (1 + stride)).reshape(n, 1 + stride)
+    t = time.perf_counter()
+    ora = image_io._png_unfilter(grid[:, 1:].copy(), grid[:, 0].copy(), 6)
+    ora_ms = (time.perf_counter() - t) * 1e3
+    nat = native.png_unfilter(grid[:, 1:].copy(), grid[:, 0].copy(), 6)
+    want = src[:n].astype(">u2").view(np.uint8).reshape(n, stride)
+    check(np.array_equal(ora, want) and np.array_equal(nat, want),
+          "phase 14: the first rows' unfilter differs from the source")
+    del raw, grid
+
+    zero_launches()
+    torch.cuda.synchronize()
+    with StageClock(((zlib, "decompress", "inflate", None),
+                     (native, "png_unfilter", "native unfilter", None),
+                     (image_io, "decode_image_host", "host decode", None))) as clock:
+        t = time.perf_counter()
+        ed = PhotoEditor.open(path, device=dev)
+        torch.cuda.synchronize()
+        open_ms = (time.perf_counter() - t) * 1e3
+    cli._set_edit_flags(ed, _parse_flags(PNG_FLAGS))
+    t = time.perf_counter()
+    render = ed.apply(FULL, cropped=False)
+    torch.cuda.synchronize()
+    render_ms = (time.perf_counter() - t) * 1e3
+    rc = cli.main(["develop", path, out_ppm, *PNG_FLAGS, "--bit-depth", "16",
+                   "--device", str(dev)])
+    torch.cuda.synchronize()
+    launches = launch_counts()  # the path's run ends here
+    check(rc == 0, f"phase 14: cli develop exited {rc}")
+    check(launches["develop"] > 0, "phase 14 never launched the develop kernel")
+
+    inflate, unfilter = clock.ms["inflate"], clock.ms["native unfilter"]
+    rest = clock.ms["host decode"] - inflate - unfilter
+    log(f"phase 14: PhotoEditor.open of the {w}x{h} 48-bit PNG on the card: "
+        f"{open_ms:.1f} ms = inflate {inflate:.1f} + native unfilter "
+        f"{unfilter:.1f} ({h * stride / unfilter / 1e3:.0f} MB/s) + the rest of "
+        f"the host decode {rest:.1f} + file read, upload and session "
+        f"{open_ms - clock.ms['host decode']:.1f}; first FULL render "
+        f"{render_ms:.1f} ms; the numpy unfilter took {ora_ms:.1f} ms for "
+        f"{n} rows ({ora_ms * h / n / 1e3:.1f} s for the image at that rate) "
+        f"[{card}]")
+
+    # The session's own FULL planes, as the open decoded and uploaded them,
+    # against the source through the same u16 -> linear conversion: a fault
+    # in the decode or its hand-over (byte order, channels, scale) shows.
+    check(ed.shape == (h, w), f"phase 14: session shape {ed.shape}")
+    held = ed._original_at(FULL)[:, :h, :w]
+    want = image_io._upload(src.transpose(2, 0, 1), 65535.0, True, dev)
+    check(torch.equal(held, want),
+          "phase 14: the session's planes differ from the source's")
+    del held, want
+    ed.use_kernel = False
+    anchor = ed.apply(FULL, cropped=False)
+    err = compare(render, anchor, what="phase 14: PNG render kernel vs exact-LUT anchor")
+    ed.use_kernel = True
+    with open(out_ppm, "rb") as f:
+        got = f.read()
+    check(got == image_io.encode_image(render, "PPM16"),
+          "phase 14: cli develop's PPM differs from the in-process render")
+    log(f"phase 14: the session's FULL planes == the source's (all {h * w * 3} "
+        f"samples, bit for bit after the u16 -> linear upload); kernel "
+        f"render vs exact-LUT anchor max abs err {err:.3e}, within the "
+        f"assert_close rule; cli develop -> 16-bit PPM ({len(got)} bytes) == "
+        f"the in-process render; launches {launches}")
+    del ed, render, anchor, data, src
+    shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return launches
+
+
 def _cli_lines(cmd, timeout):
     """Runs a CLI command line from the repository's root; (rc, stdout,
     stderr, host s)."""
@@ -3706,13 +3882,17 @@ def main() -> int:
     shutil.rmtree(raw_tmp, ignore_errors=True)
     shutil.rmtree(vendor_tmp, ignore_errors=True)
     mesh_launches = phase_mesh(dev, card, log)
+    phase_card_fuzz(dev, card, log)
+    png_launches = phase_png_open(dev, card, log)
     # Each kernel's launches, summed over the main paths that drive it (each
     # counted from zero just before its path and read just after).
     log(f"launches by path: develop frame {launches}, RAW batch {batch_launches}, "
         f"vendor path {vendor_launches}, masks and exports {mask_launches}, "
-        f"server {server_launches}, multi-device {mesh_launches}")
+        f"server {server_launches}, multi-device {mesh_launches}, "
+        f"16-bit PNG open {png_launches}")
     launches += (vendor_launches["develop"] + mask_launches["develop"]
-                 + server_launches["develop"] + mesh_launches["develop"])
+                 + server_launches["develop"] + mesh_launches["develop"]
+                 + png_launches["develop"])
     for k in batch_launches:
         batch_launches[k] += (vendor_launches[k] + mask_launches[k]
                               + server_launches.get(k, 0) + mesh_launches.get(k, 0))

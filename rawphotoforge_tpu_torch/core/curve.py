@@ -132,6 +132,18 @@ def constant_lut(value: int = 32767) -> np.ndarray:
     return np.full(CURVE_RESOLUTION, value, dtype=np.int32)
 
 
+# The default curves' control points: the identity (brightness, hue) and
+# the constant 32767 gain (saturation, lightness).
+IDENTITY_POINTS = (
+    np.array([0, CURVE_RESOLUTION - 1], dtype=np.int32),
+    np.array([0, CURVE_RESOLUTION - 1], dtype=np.int32),
+)
+CONSTANT_POINTS = (
+    np.array([0, CURVE_RESOLUTION - 1], dtype=np.int32),
+    np.array([32767, 32767], dtype=np.int32),
+)
+
+
 def pchip_coeffs(
     control_x: np.ndarray,
     control_y: np.ndarray,

@@ -44,15 +44,9 @@ _V1_CURVE_KEYS = {
 
 
 def _default_points(slot: int) -> tuple[np.ndarray, np.ndarray]:
-    if slot in (BRIGHTNESS, HUE):
-        return (
-            np.array([0, CURVE_RESOLUTION - 1], dtype=np.int32),
-            np.array([0, CURVE_RESOLUTION - 1], dtype=np.int32),
-        )
-    return (
-        np.array([0, CURVE_RESOLUTION - 1], dtype=np.int32),
-        np.array([32767, 32767], dtype=np.int32),
-    )
+    pts = (curve_mod.IDENTITY_POINTS if slot in (BRIGHTNESS, HUE)
+           else curve_mod.CONSTANT_POINTS)
+    return pts[0].copy(), pts[1].copy()
 
 
 @dataclasses.dataclass
@@ -112,6 +106,19 @@ class CurveState:
             "x": np.asarray(self.control_x).tolist(),
             "y": np.asarray(self.control_y).tolist(),
         }
+
+    @classmethod
+    def from_json(cls, obj):
+        """The inverse of ``to_json`` (no validation: ``EditParameters``
+        passes the state through ``set_curve``)."""
+        if obj is None:
+            return cls()
+        if "raw_lut" in obj:
+            return cls(raw_lut=np.asarray(obj["raw_lut"], dtype=np.int32))
+        return cls(
+            control_x=np.asarray(obj["x"], dtype=np.int32),
+            control_y=np.asarray(obj["y"], dtype=np.int32),
+        )
 
 
 @dataclasses.dataclass
@@ -248,10 +255,8 @@ class EditParameters:
                 continue  # keep the slot's default curve
             # Through set_curve: a preset's curves get the setters'
             # validation, so a bad preset fails here, not at render time.
-            if "raw_lut" in c:
-                p.set_curve(i, raw_lut=c["raw_lut"])
-            else:
-                p.set_curve(i, c["x"], c["y"])
+            st = CurveState.from_json(c)
+            p.set_curve(i, st.control_x, st.control_y, raw_lut=st.raw_lut)
         if "curves" not in d:
             # Reference v1 preset: flat *_curve_points lists of [x, y]
             # pairs (raw_photo_forge.py:2259-2283, aliases :2305-2315).

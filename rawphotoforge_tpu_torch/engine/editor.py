@@ -86,6 +86,12 @@ def bucket_shape(h: int, w: int, bucket: int = SHAPE_BUCKET) -> tuple[int, int]:
     return (h + (-h) % bucket, w + (-w) % bucket)
 
 
+def pad_to_bucket_np(arr: np.ndarray, bucket: int = SHAPE_BUCKET) -> np.ndarray:
+    """Host-side edge-pad of [..., H, W] up to multiples of ``bucket``
+    (``io/image_io.pad_to_bucket_np`` with the session's bucket)."""
+    return image_io.pad_to_bucket_np(arr, bucket)
+
+
 def _pad_to_bucket(arr: torch.Tensor, edge: bool) -> torch.Tensor:
     """Pad the trailing two dims up to bucket multiples: edge replication
     for image planes (stencils see plausible neighbors), zeros for masks

@@ -149,9 +149,10 @@ def encode_ppm16(hwc: np.ndarray) -> bytes:
 
 
 def _png_unfilter(rows: np.ndarray, filters: np.ndarray, bpp: int) -> np.ndarray:
-    """PNG row unfiltering (PNG spec 4.5.4) in numpy: filters 0/2 vectorize,
-    1 (Sub) is a per-lane cumulative sum, 3/4 (Average/Paeth) are
-    sequential in x (Python loops: correct but slow)."""
+    """PNG row unfiltering (PNG spec 4.5.4) in numpy: the test oracle of
+    ``native.png_unfilter``, which the open path runs. Filters 0/2
+    vectorize, 1 (Sub) is a per-lane cumulative sum, 3/4 (Average/Paeth)
+    loop over the row's bytes in Python."""
     h, stride = rows.shape
     out = rows.astype(np.int32)
     for y in range(h):
@@ -212,14 +213,16 @@ def _parse_png48(data: bytes) -> np.ndarray | None:
         return None  # Pillow: full-depth I;16B
     channels = {0: 1, 2: 3, 4: 2, 6: 4}[ctype]
     bpp = channels * 2
+    from .. import native
 
     def unfilter(buf: bytes, ph: int, pw: int) -> np.ndarray:
         stride = pw * bpp
         grid = np.frombuffer(buf, np.uint8).reshape(ph, 1 + stride)
-        rows = _png_unfilter(np.ascontiguousarray(grid[:, 1:]),
-                             np.ascontiguousarray(grid[:, 0]), bpp)
-        return (np.frombuffer(rows.tobytes(), ">u2")
-                .reshape(ph, pw, channels).astype(np.uint16))
+        # The native unfilter writes in place: hand it a writable copy of
+        # the rows (np.frombuffer's view is read-only).
+        rows = grid[:, 1:].copy()
+        native.png_unfilter(rows, grid[:, 0].copy(), bpp)
+        return rows.view(">u2").reshape(ph, pw, channels).astype(np.uint16)
 
     try:
         if comp != 0 or filt != 0:

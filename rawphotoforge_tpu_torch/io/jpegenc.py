@@ -296,6 +296,13 @@ def _encode_sparse_device(planes, quality: int, stage=None,
                                      host_esc, h, w, quality=quality, grid=grid)
 
 
+def available() -> bool:
+    """Whether the native entropy coders load (``native.available``)."""
+    from .. import native
+
+    return native.available()
+
+
 # -- numpy oracles --------------------------------------------------------------
 
 def _to_ycc420_np(planes: np.ndarray):

@@ -10,7 +10,10 @@ and Panasonic RAW4 decoders
 (``engine/instant``) and the host develop of the server's instant era and
 drag previews (``engine/hostdev``: the fused one-pass develop, the
 lens-distortion warp, the unsharp, the similarity and geodesic mask
-logits). The library is built at first use (never at import) with
+logits), the 16-bit PNG row unfilter of ``io/image_io``'s PNG decode, and
+the JAX package's other host helpers, for API parity (PCHIP LUT, resize,
+sRGB conversions, histogram, mask binarization). The library is built at
+first use (never at import) with
 ``g++`` and the JAX package's Makefile flags (less ``-fopenmp``) into
 ``<package>/build/``
 (listed in .gitignore), keyed by a hash of the source, the flags and the
@@ -165,6 +168,22 @@ def _bind(lib) -> None:
     lib.rpf_geodesic_logits.restype = c
     lib.rpf_unsharp_f32.argtypes = [f32p, c, c, f32p, c, cf, f32p]
     lib.rpf_unsharp_f32.restype = c
+    lib.rpf_pchip_build_lut.argtypes = [i32p, i32p, c, c, c, c, i32p]
+    lib.rpf_pchip_build_lut.restype = c
+    lib.rpf_resize_bilinear_f32.argtypes = [f32p, c, c, c, f32p, c, c]
+    lib.rpf_resize_bilinear_f32.restype = c
+    lib.rpf_srgb_u8_to_linear_f32.argtypes = [u8p, f32p, c64]
+    lib.rpf_srgb_u8_to_linear_f32.restype = c
+    lib.rpf_linear_f32_to_srgb_u8.argtypes = [f32p, u8p, c64]
+    lib.rpf_linear_f32_to_srgb_u8.restype = c
+    lib.rpf_histogram_rgbl_f32.argtypes = [f32p, c, c, i32p]
+    lib.rpf_histogram_rgbl_f32.restype = c
+    lib.rpf_binarize_mask_f32.argtypes = [f32p, f32p, c64, cf]
+    lib.rpf_binarize_mask_f32.restype = c
+    # The unfilter writes into its rows: ctypes refuses a read-only array.
+    u8w = np.ctypeslib.ndpointer(np.uint8, flags="C_CONTIGUOUS,WRITEABLE")
+    lib.rpf_png_unfilter.argtypes = [u8w, u8p, c64, c64, c]
+    lib.rpf_png_unfilter.restype = c
 
 
 def ljpeg_decode_scan(seg: bytes, out, frame, mcu_start: int, mcu_count: int,
@@ -519,3 +538,112 @@ def unsharp_f32(planes, taps, amount: float):
     if rc != 0:
         raise ValueError(f"rpf_unsharp_f32 failed (rc={rc})")
     return out
+
+
+def available() -> bool:
+    """True once the library is built and loaded, False when it cannot be
+    (``NativeBuildError``). For API parity with the JAX package: every
+    caller in the port calls the functions, which raise on a failed build."""
+    try:
+        library()
+    except NativeBuildError:
+        return False
+    return True
+
+
+def pchip_build_lut(xs, ys, lo=0, hi=65535, lut_size=65536):
+    """PCHIP expansion of i32 control points into an i32 LUT of
+    ``lut_size`` entries, clamped to [lo, hi]: ``core/curve.build_lut``'s
+    semantics, bit for bit. Raises ``CurveError`` on x values that do not
+    increase."""
+    lib = library()
+    xs = np.ascontiguousarray(xs, dtype=np.int32)
+    ys = np.ascontiguousarray(ys, dtype=np.int32)
+    out = np.empty(lut_size, dtype=np.int32)
+    rc = lib.rpf_pchip_build_lut(xs, ys, len(xs), lo, hi, lut_size, out)
+    if rc == 2:
+        from ..core.curve import CurveError
+
+        raise CurveError("control point x values must be strictly increasing")
+    if rc != 0:
+        raise ValueError(f"rpf_pchip_build_lut failed: {rc}")
+    return out
+
+
+def resize_bilinear(src_hwc, dh, dw):
+    """Half-texel-centred bilinear resize of f32 HWC to (dh, dw)."""
+    lib = library()
+    src = np.ascontiguousarray(src_hwc, dtype=np.float32)
+    h, w, ch = src.shape
+    out = np.empty((dh, dw, ch), dtype=np.float32)
+    rc = lib.rpf_resize_bilinear_f32(src, h, w, ch, out, dh, dw)
+    if rc != 0:
+        raise ValueError(f"rpf_resize_bilinear_f32 failed: {rc}")
+    return out
+
+
+def srgb_u8_to_linear(u8):
+    """sRGB-encoded u8 -> linear f32 (a 256-entry decode table)."""
+    lib = library()
+    src = np.ascontiguousarray(u8, dtype=np.uint8)
+    out = np.empty(src.shape, dtype=np.float32)
+    lib.rpf_srgb_u8_to_linear_f32(src, out, src.size)
+    return out
+
+
+def linear_to_srgb_u8(f32):
+    """Linear f32 -> sRGB u8, clamped and truncated."""
+    lib = library()
+    src = np.ascontiguousarray(f32, dtype=np.float32)
+    out = np.empty(src.shape, dtype=np.uint8)
+    lib.rpf_linear_f32_to_srgb_u8(src, out, src.size)
+    return out
+
+
+def histogram_rgbl(hwc):
+    """256-bin R, G, B and BT.601 gray histograms of an sRGB f32 HWC image
+    -> i32 [4, 256]."""
+    lib = library()
+    src = np.ascontiguousarray(hwc, dtype=np.float32)
+    h, w, ch = src.shape
+    if ch != 3:
+        raise ValueError(f"histogram_rgbl needs HWC RGB, got {src.shape}")
+    out = np.zeros((4, 256), dtype=np.int32)
+    lib.rpf_histogram_rgbl_f32(src, h, w, out)
+    return out
+
+
+def binarize_mask(src, threshold):
+    """1.0 where ``src >= threshold``, else 0.0 (f32)."""
+    lib = library()
+    s = np.ascontiguousarray(src, dtype=np.float32)
+    out = np.empty(s.shape, dtype=np.float32)
+    lib.rpf_binarize_mask_f32(s, out, s.size, float(threshold))
+    return out
+
+
+def png_unfilter(rows, filters, bpp: int):
+    """Undo PNG row filters (PNG spec 4.5.4) IN PLACE on ``rows`` [h, stride]
+    u8, a writable C-contiguous array (the filter bytes already split off
+    into ``filters`` [h] u8); returns ``rows``. ``bpp``: bytes per pixel.
+    Raises ``ImageIOError`` on an unknown filter type (a malformed file);
+    ``io/image_io._png_unfilter`` is its numpy oracle."""
+    from ..io.image_io import ImageIOError
+
+    lib = library()
+    if not (isinstance(rows, np.ndarray) and rows.dtype == np.uint8
+            and rows.ndim == 2 and rows.flags.c_contiguous
+            and rows.flags.writeable):
+        raise ValueError("png_unfilter needs writable C-contiguous u8 rows "
+                         "[h, stride] (it unfilters in place)")
+    filters = np.ascontiguousarray(filters, dtype=np.uint8)
+    h, stride = rows.shape
+    if filters.shape != (h,):
+        raise ValueError(f"filters must be ({h},), got {filters.shape}")
+    rc = lib.rpf_png_unfilter(rows, filters, h, stride, int(bpp))
+    if rc != 0:
+        bad = filters[filters > 4]
+        raise ImageIOError(f"PNG filter type {int(bad[0])}" if bad.size
+                           else f"png_unfilter failed (code {rc}): "
+                           f"{h}x{stride} rows, bpp {bpp}")
+    return rows

@@ -8,10 +8,13 @@
 // behind io/vendor_packed.py, the per-CFA-tile block means of
 // engine/instant.py, and the host develop of engine/hostdev.py (the fused
 // one-pass develop, the lens-distortion warp, the unsharp and the era
-// mask selections). rawphotoforge_tpu_torch/native/__init__.py builds
-// this file with g++ at first use and binds it with ctypes. The
-// `#pragma omp` lines come with the copied host-develop code; the build
-// has no -fopenmp, so they are ignored and those loops run on one thread.
+// mask selections), the 16-bit PNG row unfilter of io/image_io.py, and
+// the JAX package's other host helpers (PCHIP LUT, resize, sRGB
+// conversions, histogram, mask binarization).
+// rawphotoforge_tpu_torch/native/__init__.py builds this file with g++ at
+// first use and binds it with ctypes. The `#pragma omp` lines come with
+// the copied code; the build has no -fopenmp, so they are ignored and
+// those loops run on one thread.
 //
 // ABI: plain C, ctypes-friendly. All functions return 0 on success.
 
@@ -22,12 +25,17 @@
 #include <algorithm>
 #include <vector>
 
+#if defined(_OPENMP)
+#include <omp.h>
+#endif
+
 extern "C" {
 
 // Error codes.
 enum {
   RPF_OK = 0,
   RPF_ERR_ARGS = 1,
+  RPF_ERR_NOT_INCREASING = 2,
 };
 
 // ---------------------------------------------------------------------------
@@ -1684,6 +1692,299 @@ int rpf_hostdev_develop(const float* planes, int h, int w, int n_masks,
         px[j * 3 + 1] = static_cast<uint8_t>(G[j] * 255.0f);
         px[j * 3 + 2] = static_cast<uint8_t>(B[j] * 255.0f);
       }
+    }
+  }
+  return RPF_OK;
+}
+
+// ---------------------------------------------------------------------------
+// The JAX package's host helpers, unchanged in arithmetic: the PCHIP LUT
+// expansion, the bilinear resize, the sRGB u8 <-> linear f32 conversions,
+// the RGB + gray histogram, the mask binarization (native/__init__.py's
+// API-parity wrappers) and the PNG row unfilter behind io/image_io.py's
+// 16-bit PNG decode. Without -fopenmp their `#pragma omp` lines are
+// ignored and the histogram takes its single-thread branch: the outputs
+// are those of the JAX package's OpenMP build.
+// ---------------------------------------------------------------------------
+
+// ---------------------------------------------------------------------------
+// PCHIP -> LUT expansion (f32 internals; harmonic-mean slopes; clamped
+// extrapolation; truncate-toward-zero i32 cast — the exact semantics of the
+// reference's curve setters).
+// ---------------------------------------------------------------------------
+
+int rpf_pchip_build_lut(const int32_t* xs, const int32_t* ys, int n,
+                        int32_t lo, int32_t hi, int lut_size, int32_t* out) {
+  if (n < 2 || lut_size <= 0 || !xs || !ys || !out) return RPF_ERR_ARGS;
+
+  // f32 working copies (match the reference's f32 internals). nothrow:
+  // an exception must not unwind through the C ABI into ctypes.
+  float* x = new (std::nothrow) float[n];
+  float* y = new (std::nothrow) float[n];
+  float* h = new (std::nothrow) float[n - 1];
+  float* del = new (std::nothrow) float[n - 1];
+  float* slope = new (std::nothrow) float[n];
+  if (!x || !y || !h || !del || !slope) {
+    delete[] x; delete[] y; delete[] h; delete[] del; delete[] slope;
+    return RPF_ERR_ARGS;
+  }
+  for (int i = 0; i < n; ++i) {
+    x[i] = static_cast<float>(xs[i]);
+    y[i] = static_cast<float>(ys[i]);
+  }
+  for (int i = 0; i < n - 1; ++i) {
+    h[i] = x[i + 1] - x[i];
+    if (h[i] <= 0.0f) {
+      delete[] x; delete[] y; delete[] h; delete[] del; delete[] slope;
+      return RPF_ERR_NOT_INCREASING;
+    }
+    del[i] = (y[i + 1] - y[i]) / h[i];
+  }
+  slope[0] = del[0];
+  slope[n - 1] = del[n - 2];
+  for (int i = 1; i < n - 1; ++i) {
+    if (del[i - 1] * del[i] <= 0.0f) {
+      slope[i] = 0.0f;
+    } else {
+      float w1 = 2.0f * h[i] + h[i - 1];
+      float w2 = h[i] + 2.0f * h[i - 1];
+      slope[i] = (w1 + w2) / (w1 / del[i - 1] + w2 / del[i]);
+    }
+  }
+
+#pragma omp parallel for schedule(static)
+  for (int k = 0; k < lut_size; ++k) {
+    float xv = static_cast<float>(k);
+    float val;
+    if (xv <= x[0]) {
+      val = y[0];
+    } else if (xv >= x[n - 1]) {
+      val = y[n - 1];
+    } else {
+      // Binary search: largest i with x[i] <= xv.
+      int loi = 0, hii = n - 1;
+      while (hii - loi > 1) {
+        int mid = (loi + hii) >> 1;
+        if (x[mid] <= xv) loi = mid; else hii = mid;
+      }
+      int i = std::min(loi, n - 2);
+      float hv = h[i];
+      float t = (xv - x[i]) / hv;
+      float t2 = t * t;
+      float t3 = t2 * t;
+      float h00 = 2.0f * t3 - 3.0f * t2 + 1.0f;
+      float h10 = t3 - 2.0f * t2 + t;
+      float h01 = -2.0f * t3 + 3.0f * t2;
+      float h11 = t3 - t2;
+      val = h00 * y[i] + h10 * hv * slope[i] + h01 * y[i + 1] +
+            h11 * hv * slope[i + 1];
+    }
+    // Clamp in float FIRST (casting values at/above 2^31 is UB and lands
+    // on the wrong side), then truncate toward zero (Rust `as i32`).
+    float lof = static_cast<float>(lo);
+    float hif = static_cast<float>(hi);
+    val = (val >= lof) ? std::min(val, hif) : lof;  // NaN -> lo
+    int32_t iv = static_cast<int32_t>(val);
+    out[k] = std::min(std::max(iv, lo), hi);
+  }
+
+  delete[] x; delete[] y; delete[] h; delete[] del; delete[] slope;
+  return RPF_OK;
+}
+
+// ---------------------------------------------------------------------------
+// Bilinear resize, HWC float32, half-texel-centered — the preview-pyramid
+// resampler contract (web/main.ts:984-1019): indices clamp at the edges
+// but the first-row/column weights can go slightly negative on upscale
+// (mild extrapolation), exactly like the reference and ops/geometry.
+// ---------------------------------------------------------------------------
+
+int rpf_resize_bilinear_f32(const float* src, int sh, int sw, int ch,
+                            float* dst, int dh, int dw) {
+  if (!src || !dst || sh <= 0 || sw <= 0 || dh <= 0 || dw <= 0 || ch <= 0)
+    return RPF_ERR_ARGS;
+  const float scale_y = static_cast<float>(sh) / dh;
+  const float scale_x = static_cast<float>(sw) / dw;
+
+#pragma omp parallel for schedule(static)
+  for (int y = 0; y < dh; ++y) {
+    float sy = (y + 0.5f) * scale_y - 0.5f;
+    int y0 = std::max(static_cast<int>(std::floor(sy)), 0);
+    int y1 = std::min(y0 + 1, sh - 1);
+    float ty = sy - y0;
+    for (int x = 0; x < dw; ++x) {
+      float sx = (x + 0.5f) * scale_x - 0.5f;
+      int x0 = std::max(static_cast<int>(std::floor(sx)), 0);
+      int x1 = std::min(x0 + 1, sw - 1);
+      float tx = sx - x0;
+      const float* r0a = src + (static_cast<size_t>(y0) * sw + x0) * ch;
+      const float* r0b = src + (static_cast<size_t>(y0) * sw + x1) * ch;
+      const float* r1a = src + (static_cast<size_t>(y1) * sw + x0) * ch;
+      const float* r1b = src + (static_cast<size_t>(y1) * sw + x1) * ch;
+      float* d = dst + (static_cast<size_t>(y) * dw + x) * ch;
+      for (int c = 0; c < ch; ++c) {
+        float top = r0a[c] * (1.0f - tx) + r0b[c] * tx;
+        float bot = r1a[c] * (1.0f - tx) + r1b[c] * tx;
+        d[c] = top * (1.0f - ty) + bot * ty;
+      }
+    }
+  }
+  return RPF_OK;
+}
+
+// ---------------------------------------------------------------------------
+// sRGB u8 <-> linear f32 (EOTF per wgpu_shader.wgsl:85-103; decode via a
+// 256-entry table, encode truncating like image.rs:375-383).
+// ---------------------------------------------------------------------------
+
+// Thread-safe lazy table (C++11 magic static): ctypes releases the GIL,
+// so concurrent first calls from Python threads are real; a plain
+// check-then-init bool is a data race.
+struct SrgbDecodeTable {
+  float v[256];
+  SrgbDecodeTable() {
+    for (int i = 0; i < 256; ++i) {
+      float c = i / 255.0f;
+      v[i] = (c <= 0.04045f) ? c / 12.92f
+                             : std::pow((c + 0.055f) / 1.055f, 2.4f);
+    }
+  }
+};
+
+int rpf_srgb_u8_to_linear_f32(const uint8_t* src, float* dst, int64_t n) {
+  if (!src || !dst || n < 0) return RPF_ERR_ARGS;
+  static const SrgbDecodeTable table;
+#pragma omp parallel for schedule(static)
+  for (int64_t i = 0; i < n; ++i) dst[i] = table.v[src[i]];
+  return RPF_OK;
+}
+
+int rpf_linear_f32_to_srgb_u8(const float* src, uint8_t* dst, int64_t n) {
+  if (!src || !dst || n < 0) return RPF_ERR_ARGS;
+#pragma omp parallel for schedule(static)
+  for (int64_t i = 0; i < n; ++i) {
+    float c = src[i];
+    float s = (c <= 0.0031308f)
+                  ? c * 12.92f
+                  : 1.055f * std::pow(std::max(c, 0.0f), 1.0f / 2.4f) - 0.055f;
+    // NaN-safe clamp BEFORE the cast (float->int of NaN/huge is UB).
+    s = (s >= 0.0f) ? std::min(s, 1.0f) : 0.0f;
+    dst[i] = static_cast<uint8_t>(s * 255.0f);  // truncating, as reference
+  }
+  return RPF_OK;
+}
+
+// ---------------------------------------------------------------------------
+// 256-bin RGB + gray histogram of an sRGB-encoded f32 HWC image
+// (BT.601 gray weights — the reference feeds cv2 RGB2GRAY on the preview).
+// ---------------------------------------------------------------------------
+
+int rpf_histogram_rgbl_f32(const float* hwc, int h, int w, int32_t* out4x256) {
+  if (!hwc || !out4x256 || h <= 0 || w <= 0) return RPF_ERR_ARGS;
+  std::memset(out4x256, 0, sizeof(int32_t) * 4 * 256);
+  const int64_t n = static_cast<int64_t>(h) * w;
+
+#if defined(_OPENMP)
+  int nthreads = omp_get_max_threads();
+#else
+  int nthreads = 1;
+#endif
+  // Per-thread local bins, merged at the end (avoids atomics).
+  int32_t* locals =
+      new (std::nothrow) int32_t[static_cast<size_t>(nthreads) * 4 * 256]();
+  if (!locals) return RPF_ERR_ARGS;
+
+#pragma omp parallel
+  {
+#if defined(_OPENMP)
+    int tid = omp_get_thread_num();
+#else
+    int tid = 0;
+#endif
+    int32_t* bins = locals + static_cast<size_t>(tid) * 4 * 256;
+#pragma omp for schedule(static)
+    for (int64_t i = 0; i < n; ++i) {
+      const float* px = hwc + i * 3;
+      float r = px[0], g = px[1], b = px[2];
+      float gray = 0.299f * r + 0.587f * g + 0.114f * b;
+      // Clamp in float BEFORE the int cast: casting NaN or out-of-range
+      // floats is UB. NaN deterministically lands in bin 0.
+      auto bin = [](float v) {
+        v = v * 255.0f;
+        v = (v >= 0.0f) ? std::min(v, 255.0f) : 0.0f;
+        return static_cast<int>(v);
+      };
+      int ri = bin(r);
+      int gi = bin(g);
+      int bi = bin(b);
+      int yi = bin(gray);
+      bins[0 * 256 + ri]++;
+      bins[1 * 256 + gi]++;
+      bins[2 * 256 + bi]++;
+      bins[3 * 256 + yi]++;
+    }
+  }
+  for (int t = 0; t < nthreads; ++t)
+    for (int k = 0; k < 4 * 256; ++k)
+      out4x256[k] += locals[static_cast<size_t>(t) * 4 * 256 + k];
+  delete[] locals;
+  return RPF_OK;
+}
+
+int rpf_binarize_mask_f32(const float* src, float* dst, int64_t n,
+                          float threshold) {
+  if (!src || !dst || n < 0) return RPF_ERR_ARGS;
+#pragma omp parallel for schedule(static)
+  for (int64_t i = 0; i < n; ++i) dst[i] = src[i] >= threshold ? 1.0f : 0.0f;
+  return RPF_OK;
+}
+
+// PNG row reconstruction (PNG spec 4.5.4 / RFC 2083 §6.6): undo the
+// per-row byte filters in place. `data` holds h rows of `stride`
+// filtered bytes (filter-type bytes already stripped into `filters`),
+// `bpp` is bytes per pixel. Rows are inherently sequential (Up/Average/
+// Paeth read the reconstructed previous row, Sub/Average/Paeth the
+// reconstructed left pixel) — this loop is why the decode needs a
+// native hot path; the numpy mirror in io/image_io.py is the tested
+// oracle. Returns RPF_OK or RPF_ERR on an unknown filter type.
+int rpf_png_unfilter(uint8_t* data, const uint8_t* filters, int64_t h,
+                     int64_t stride, int32_t bpp) {
+  if (h <= 0 || stride <= 0 || bpp <= 0 || bpp > stride) return RPF_ERR_ARGS;
+  for (int64_t y = 0; y < h; ++y) {
+    uint8_t* row = data + y * stride;
+    const uint8_t* up = y > 0 ? data + (y - 1) * stride : nullptr;
+    switch (filters[y]) {
+      case 0:
+        break;
+      case 1:  // Sub
+        for (int64_t x = bpp; x < stride; ++x) row[x] += row[x - bpp];
+        break;
+      case 2:  // Up
+        if (up)
+          for (int64_t x = 0; x < stride; ++x) row[x] += up[x];
+        break;
+      case 3:  // Average
+        for (int64_t x = 0; x < stride; ++x) {
+          unsigned a = x >= bpp ? row[x - bpp] : 0u;
+          unsigned b = up ? up[x] : 0u;
+          row[x] = static_cast<uint8_t>(row[x] + ((a + b) >> 1));
+        }
+        break;
+      case 4:  // Paeth
+        for (int64_t x = 0; x < stride; ++x) {
+          int a = x >= bpp ? row[x - bpp] : 0;
+          int b = up ? up[x] : 0;
+          int c = (up && x >= bpp) ? up[x - bpp] : 0;
+          int p = a + b - c;
+          int pa = p > a ? p - a : a - p;
+          int pb = p > b ? p - b : b - p;
+          int pc = p > c ? p - c : c - p;
+          int pred = (pa <= pb && pa <= pc) ? a : (pb <= pc ? b : c);
+          row[x] = static_cast<uint8_t>(row[x] + pred);
+        }
+        break;
+      default:
+        return RPF_ERR_ARGS;
     }
   }
   return RPF_OK;

@@ -306,3 +306,67 @@ def test_eval_packed_matches_jax(xs, ys, max_ctrl):
     j = np.asarray(jcurve.eval_packed(jnp.asarray(u), jnp.asarray(breaks),
                                       jnp.asarray(coeffs)))
     np.testing.assert_array_equal(t, j)
+
+
+# -- the last public names ----------------------------------------------------
+
+def test_default_curve_points_equal_jax():
+    for name in ("IDENTITY_POINTS", "CONSTANT_POINTS"):
+        ours, ref = getattr(tcurve, name), getattr(jcurve, name)
+        assert len(ours) == len(ref) == 2
+        for a, b in zip(ours, ref):
+            assert a.dtype == b.dtype
+            np.testing.assert_array_equal(a, b)
+    # They are the control points of the default curves the kernel packs.
+    for slot, pts in ((tparams.BRIGHTNESS, tcurve.IDENTITY_POINTS),
+                      (tparams.HUE, tcurve.IDENTITY_POINTS),
+                      (tparams.SATURATION, tcurve.CONSTANT_POINTS),
+                      (tparams.LIGHTNESS, tcurve.CONSTANT_POINTS)):
+        for a, b in zip(tparams._default_points(slot), pts):
+            np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("obj", [
+    None, {"x": [0, 30000, 65535], "y": [0, 36000, 65535]},
+    {"raw_lut": list(range(0, 65536 * 2, 2))}])
+def test_curve_state_from_json_equals_jax(obj):
+    ours, ref = tparams.CurveState.from_json(obj), jparams.CurveState.from_json(obj)
+    for field in ("control_x", "control_y", "raw_lut"):
+        a, b = getattr(ours, field), getattr(ref, field)
+        assert (a is None) == (b is None), field
+        if a is not None:
+            assert a.dtype == b.dtype
+            np.testing.assert_array_equal(a, b)
+    assert ours.to_json() == ref.to_json()
+    if obj is not None:
+        for slot in range(4):
+            np.testing.assert_array_equal(ours.lut(slot), ref.lut(slot))
+
+
+def test_edit_parameters_from_json_through_curve_state_round_trips():
+    p = tparams.EditParameters()
+    p.set_tone(exposure=0.4, contrast=12)
+    p.set_curve(tparams.BRIGHTNESS, [0, 21000, 65535], [500, 30000, 65535], channel=1)
+    p.set_curve(tparams.SATURATION, raw_lut=np.full(65536, 30000))
+    d = p.to_json()
+    q = tparams.EditParameters.from_json(json.loads(json.dumps(d)))
+    assert q.to_json() == d
+    assert jparams.EditParameters.from_json(d).to_json() == d
+    with pytest.raises(tcurve.CurveError):  # set_curve's validation still runs
+        tparams.EditParameters.from_json(
+            {"curves": {"brightness": {"x": [0, 0, 65535], "y": [0, 1, 2]}}})
+
+
+def test_jpegenc_available_and_editor_pad_to_bucket_np():
+    from rawphotoforge_tpu.engine.editor import pad_to_bucket_np as jpad
+    from rawphotoforge_tpu.io import jpegenc as jjpegenc
+
+    from rawphotoforge_tpu_torch.engine.editor import SHAPE_BUCKET, pad_to_bucket_np
+    from rawphotoforge_tpu_torch.io import jpegenc
+
+    assert jpegenc.available() is True and jjpegenc.available() is True
+    arr = np.arange(2 * 5 * 131, dtype=np.float32).reshape(2, 5, 131)
+    assert SHAPE_BUCKET == 128
+    for bucket in ((), (16,)):
+        np.testing.assert_array_equal(pad_to_bucket_np(arr, *bucket), jpad(arr, *bucket))
+    assert pad_to_bucket_np(arr).shape == (2, 128, 256)

@@ -687,3 +687,17 @@ def test_put_np_stages_several_bands_on_the_card(dev):
     total = int((t.to(torch.int64) & 0xFFFF).sum())  # on the caller's stream
     assert torch.equal(t.cpu(), torch.from_numpy(mosaic.view(np.int16).copy()))
     assert total == int(mosaic.astype(np.int64).sum())
+
+
+# -- the card fuzz (tools/torch_card_fuzz.py) -------------------------------------
+
+def test_card_fuzz_one_seed_a_part(dev):
+    """Every part of the card fuzz at one seed: each kernel against its
+    reference and bit for bit against its twin on random draws."""
+    from chip_smoke import load_card_fuzz
+
+    fuzz = load_card_fuzz()
+    result = fuzz.run(dev, {k: 1 for k in fuzz.DEFAULT_COUNTS}, log=lambda _m: None)
+    failed = {k: result[k] for k, _, _ in fuzz.PARTS if result[k]["fails"]}
+    assert result["ok"], failed
+    assert all(result[k]["twin_equal"] for k, _, _ in fuzz.PARTS)

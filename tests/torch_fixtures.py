@@ -14,6 +14,13 @@ both build their files here.
   ``noise_preview``: one of another image (the gate refuses).
 * ``opcode_list3``: a DNG OpcodeList3 of WarpRectilinear / WarpFisheye
   and FixVignetteRadial, in a given order.
+* ``png_forward_filter`` / ``png48_bytes``: the PNG spec's forward row
+  filters, vectorised (each reads only raw bytes), and a 16-bit PNG of
+  those rows, plain or Adam7-interlaced (Pillow cannot write 48-bit RGB).
+* ``random_params``, ``assert_fuzz_close`` and
+  ``assert_staircase_explained``: the full-parameter fuzz's draws and
+  gates (tests/test_fuzz.py), on the port's EditParameters and its
+  exact-LUT anchor (``ops/develop.develop_post_geo``), on any device.
 """
 
 from __future__ import annotations
@@ -255,3 +262,187 @@ def opcode_list3(warp=None, fisheye=None, vignette=None,
     for op_id, body in ops:
         out += struct.pack(">IIII", op_id, 0x01030000, 0, len(body)) + body
     return out
+
+
+# -- 16-bit PNG -------------------------------------------------------------------
+
+# Adam7 interlace pass origins/strides (PNG spec 8.2): (x0, y0, dx, dy).
+ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4),
+         (0, 2, 2, 4), (1, 0, 2, 2), (0, 1, 1, 2))
+
+
+def png_forward_filter(rows: np.ndarray, ftypes, bpp: int) -> bytes:
+    """The PNG forward filter (spec 4.5.4 / 9.2) of u8 rows [h, stride],
+    row y with filter ``ftypes[y]`` (0-4); returns the filter-byte-led
+    rows. The encoder's predictors read only raw bytes, so every row and
+    column is filtered at once."""
+    cur = rows.astype(np.int16)
+    h, stride = cur.shape
+    ft = np.asarray(ftypes, dtype=np.uint8).reshape(h)
+    zero_col = np.zeros((h, bpp), np.int16)
+    a = np.concatenate([zero_col, cur[:, :-bpp]], axis=1)[:, :stride]
+    b = np.concatenate([np.zeros((1, stride), np.int16), cur[:-1]], axis=0)
+    c = np.concatenate([zero_col, b[:, :-bpp]], axis=1)[:, :stride]
+    p = a + b - c
+    pa, pb, pc = np.abs(p - a), np.abs(p - b), np.abs(p - c)
+    paeth = np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, c))
+    f = ft[:, None]
+    pred = np.select([f == 1, f == 2, f == 3, f == 4],
+                     [a, b, (a + b) >> 1, paeth], 0)
+    out = np.empty((h, 1 + stride), np.uint8)
+    out[:, 0] = ft
+    out[:, 1:] = ((cur - pred) & 0xFF).astype(np.uint8)
+    return out.tobytes()
+
+
+def png48_raw(u16: np.ndarray, ftypes_for=None, interlace: bool = False) -> bytes:
+    """The filtered image data (before deflate) of a 16-bit PNG of u16
+    [h, w, c], big-endian samples, its rows filtered with
+    ``ftypes_for(n_rows)`` (default all 0); Adam7-interlaced with
+    ``interlace`` (each pass filtered on its own)."""
+    h, w, ch = u16.shape
+    bpp = 2 * ch
+    ftypes_for = ftypes_for or (lambda n: np.zeros(n, np.uint8))
+
+    def filtered(img):
+        rows = np.ascontiguousarray(img.astype(">u2")).view(np.uint8)
+        rows = rows.reshape(img.shape[0], img.shape[1] * bpp)
+        return png_forward_filter(rows, ftypes_for(img.shape[0]), bpp)
+
+    if interlace:
+        return b"".join(filtered(u16[y0::dy, x0::dx])
+                        for x0, y0, dx, dy in ADAM7 if x0 < w and y0 < h)
+    return filtered(u16)
+
+
+def png48_bytes(u16: np.ndarray, ftypes_for=None, interlace: bool = False,
+                level: int = 6, raw: bytes | None = None) -> bytes:
+    """A 16-bit PNG of u16 [h, w, c] (c = 1 gray, 2 gray+alpha, 3 RGB,
+    4 RGBA): ``png48_raw``'s data (or ``raw``, made so) in one IDAT
+    deflated at ``level``."""
+    import zlib
+
+    h, w, ch = u16.shape
+    if raw is None:
+        raw = png48_raw(u16, ftypes_for, interlace)
+
+    def chunk(tag, payload):
+        return (struct.pack(">I", len(payload)) + tag + payload
+                + struct.pack(">I", zlib.crc32(tag + payload)))
+
+    ctype = {1: 0, 2: 4, 3: 2, 4: 6}[ch]
+    return (b"\x89PNG\r\n\x1a\n"
+            + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 16, ctype, 0, 0,
+                                          int(interlace)))
+            + chunk(b"IDAT", zlib.compress(raw, level))
+            + chunk(b"IEND", b""))
+
+
+# -- the full-parameter fuzz --------------------------------------------------------
+
+def random_params(r: np.random.Generator, allow_geometry=True):
+    """tests/test_fuzz.py's ``_random_params`` on the port's
+    EditParameters: the same Generator calls in the same order, so a seed
+    gives the same edit in both packages."""
+    from rawphotoforge_tpu_torch.core.params import (
+        BRIGHTNESS, HUE, LIGHTNESS, SATURATION, EditParameters)
+
+    p = EditParameters()
+    p.set_tone(
+        exposure=float(r.uniform(-3, 3)),
+        contrast=int(r.integers(-100, 101)),
+        shadow=int(r.integers(-100, 101)),
+        highlight=int(r.integers(-100, 101)),
+        black=int(r.integers(-60, 61)),
+        white=int(r.integers(-60, 61)),
+    )
+    p.set_whitebalance(int(r.integers(-100, 101)), int(r.integers(-100, 101)))
+    p.set_vignette(int(r.integers(-100, 101)))
+    if allow_geometry:
+        p.set_lens_distortion(int(r.integers(-100, 101)))
+    for slot in (BRIGHTNESS, HUE, SATURATION, LIGHTNESS):
+        n = int(r.integers(2, 7))
+        xs = np.sort(r.choice(65536, size=n, replace=False)).astype(np.int32)
+        xs[0], xs[-1] = 0, 65535
+        xs = np.unique(xs)
+        if slot in (SATURATION, LIGHTNESS):
+            # Hue-independent gains: a near-neutral pixel's hue is rounding
+            # noise, so a hue-varying sat/light curve has no one answer.
+            ys = np.full(len(xs), r.integers(20000, 46000), dtype=np.int32)
+        else:
+            ys = np.sort(r.integers(0, 65536, size=len(xs))).astype(np.int32)
+        p.set_curve(slot, xs, ys)
+    return p
+
+
+def fuzz_deviation(ours, ref) -> dict:
+    """Median, mean and max of |ours - ref| (tensors or arrays), in f64."""
+    d = np.abs(_f64(ours) - _f64(ref))
+    return {"median": float(np.median(d)), "mean": float(d.mean()),
+            "max": float(d.max())}
+
+
+def _f64(x) -> np.ndarray:
+    if hasattr(x, "detach"):
+        x = x.detach().cpu().numpy()
+    return np.asarray(x, dtype=np.float64)
+
+
+def assert_fuzz_close(ours, ref, step=0.06):
+    """tests/test_fuzz.py's fuzz-grade rule: random curves have steep
+    segments, so ulp-level divergence flips single LUT indices on some
+    pixels, each flip bounded by one staircase step; bound the
+    distribution, not the flip count."""
+    d = fuzz_deviation(ours, ref)
+    assert d["median"] < 5e-5, f"median {d['median']:.2e}"
+    assert d["mean"] < 1e-3, f"mean {d['mean']:.2e}"
+    assert d["max"] < step, f"max {d['max']:.2e}"
+
+
+def staircase_candidate_outputs(planes, packed, masks) -> np.ndarray:
+    """The exact-LUT anchor with each curve family's LUT shifted one index
+    either way: every value an ulp-induced index flip can give. Returns
+    f64 [9, 3, H, W] (the unshifted anchor first)."""
+    from rawphotoforge_tpu_torch.ops import develop as dev
+
+    outs = [_f64(dev.develop_post_geo(planes, packed, masks))]
+    luts = packed.luts
+    for fam in range(4):
+        for d in (-1, 1):
+            sh = luts.clone()
+            if d == 1:
+                sh[:, fam, :-1] = luts[:, fam, 1:]
+            else:
+                sh[:, fam, 1:] = luts[:, fam, :-1]
+            outs.append(_f64(dev.develop_post_geo(
+                planes, dataclasses.replace(packed, luts=sh), masks)))
+    return np.stack(outs)
+
+
+def assert_staircase_explained(kern, planes, packed, masks, thresh=1e-3,
+                               fit_tol=2e-3, max_flip_frac=0.05):
+    """tests/test_fuzz.py's staircase gate: every value more than
+    ``thresh`` from the anchor must lie within the envelope of the anchor
+    run with each curve family's LUT shifted one index either way (plus
+    ``fit_tol``), and at most ``max_flip_frac`` of the values may deviate.
+    Returns (flip_frac, 0)."""
+    cands = staircase_candidate_outputs(planes, packed, masks)
+    kern = _f64(kern)
+    outliers = np.abs(kern - cands[0]) > thresh
+    frac = float(outliers.mean())
+    assert frac < max_flip_frac, (
+        f"{frac:.3%} of pixel-channels deviate >{thresh} "
+        f"(bound {max_flip_frac:.1%})")
+    lo = cands.min(axis=0) - fit_tol
+    hi = cands.max(axis=0) + fit_tol
+    bad = outliers & ((kern < lo) | (kern > hi))
+    if bad.any():
+        idx = np.argwhere(bad)[:5]
+        detail = "; ".join(
+            f"[{','.join(map(str, i))}] kern={kern[tuple(i)]:.5f} "
+            f"env=[{lo[tuple(i)]:.5f},{hi[tuple(i)]:.5f}] "
+            f"anchor={cands[0][tuple(i)]:.5f}" for i in idx)
+        raise AssertionError(
+            f"{int(bad.sum())} pixel-channels deviate >{thresh} yet lie "
+            f"outside the adjacent-staircase envelope: {detail}")
+    return frac, 0
