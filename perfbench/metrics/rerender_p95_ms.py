@@ -1,0 +1,9 @@
+"""95th percentile over every tick of the window (never over chunks):
+host clock from the slider call to the return of the synchronize after
+``apply(FULL)``."""
+
+from benchlib.stats import percentile
+
+
+def read(ctx):
+    return percentile(ctx["total_ms"], 95) if ctx.get("total_ms") else None
