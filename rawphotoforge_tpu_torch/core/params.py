@@ -27,6 +27,10 @@ from .._device import resolve_device
 from . import curve as curve_mod
 from .curve import CURVE_RESOLUTION, MAX_CTRL
 
+# Packing work done since the counts were last set to 0: one curve fit per
+# ``CurveState.packed`` call that ``pack_params`` makes.
+COUNTS = {"curve_fits": 0}
+
 # Curve slot order, fixed: matches binding order wgpu_shader.wgsl:12-15.
 BRIGHTNESS, HUE, SATURATION, LIGHTNESS = 0, 1, 2, 3
 CURVE_NAMES = ("brightness", "hue", "saturation", "lightness")
@@ -397,6 +401,7 @@ def pack_params(
             if build_luts:
                 luts[i, slot] = p.curves[slot].lut(slot)
             b, c = p.curves[slot].packed(slot, max_ctrl=s)
+            COUNTS["curve_fits"] += 1
             breaks[i, slot] = b
             coeffs[i, slot] = c
     main = param_list[0]

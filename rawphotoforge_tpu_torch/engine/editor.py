@@ -56,6 +56,7 @@ from ..ops.geometry import (resize_bilinear, resize_bilinear_extents,
 from ..ops.sharpen import unsharp_mask
 from ..ops.stats import (clipping_stats, clipping_stats_rect, histogram_rgbl,
                          histogram_rgbl_rect)
+from ..utils.profiling import span
 
 FULL, MID, LOW = "full", "mid", "low"
 DEFAULT_MID_LONG_EDGE = 1280  # uiPreviewSize default (web/main.ts:31-35)
@@ -65,6 +66,10 @@ DEFAULT_LOW_LONG_EDGE = 400   # dragPreviewSize default
 # session's buffers have the same shapes as the reference's; positional
 # effects normalize by the true extent (DevelopParams.extent).
 SHAPE_BUCKET = 128
+
+# Geometry work the renders have done, since the counts were last set to 0:
+# one per lens-distortion warp and one per unsharp mask ``_geo_at`` runs.
+COUNTS = {"warps": 0, "unsharps": 0}
 
 
 def crop_slice_for_grid(crop_rect, full_hw, grid_hw):
@@ -633,8 +638,10 @@ class PhotoEditor:
         want_luts = self._use_exact_path()
         if self._packed is None or self._packed_with_luts != want_luts:
             # The kernel never reads the exact LUTs: skip building them.
-            self._packed = pack_params([m.params for m in self.masks],
-                                       build_luts=want_luts, device=self.device)
+            with span("editor.pack_params"):
+                self._packed = pack_params([m.params for m in self.masks],
+                                           build_luts=want_luts,
+                                           device=self.device)
             self._packed_with_luts = want_luts
         # Same packed stack for every level; only the true extent differs.
         return dataclasses.replace(
@@ -673,16 +680,19 @@ class PhotoEditor:
         cached = self._geo_cache.get(level)
         if cached is not None and cached[0] == key:
             return cached[1]
-        out = self._original_at(level)
-        th, tw = self._extents[level]
-        if key[0] != 0.0:
-            out = dev.geometry_stage(out, key[0], self._extents[level])
-            if out.shape[1] > th or out.shape[2] > tw:
-                # The warp blackens the bucket pad; restore edge
-                # replication before the stencil reads it.
-                out = dev.replicate_true_edges(out, th, tw)
-        if key[1] != 0.0:
-            out = unsharp_mask(out, key[1] / 100.0 * 2.0)
+        with span("editor.geometry"):
+            out = self._original_at(level)
+            th, tw = self._extents[level]
+            if key[0] != 0.0:
+                out = dev.geometry_stage(out, key[0], self._extents[level])
+                COUNTS["warps"] += 1
+                if out.shape[1] > th or out.shape[2] > tw:
+                    # The warp blackens the bucket pad; restore edge
+                    # replication before the stencil reads it.
+                    out = dev.replicate_true_edges(out, th, tw)
+            if key[1] != 0.0:
+                out = unsharp_mask(out, key[1] / 100.0 * 2.0)
+                COUNTS["unsharps"] += 1
         self._geo_cache[level] = (key, out)
         return out
 
@@ -710,28 +720,29 @@ class PhotoEditor:
 
     def _render_padded(self, level: str) -> torch.Tensor:
         """Render the edit stack at ``level`` on the bucket-padded grid."""
-        params = self._packed_params(level)
-        geo = self._geo_at(level)
-        # Single-mask sessions pass no mask array at all.
-        masks = None if len(self.masks) == 1 else self._masks_at(level)
-        if self._use_exact_path():
-            return dev.develop_post_geo(geo, params, masks)
-        # Untouched curves take the kernel's shortcuts, per curve family:
-        # default brightness curves skip the brightness sweeps; default
-        # hue/sat/light curves also skip the OKLCH round trip
-        # (identity_oklch, <= ~2e-3). Multi-mask sessions pass the
-        # per-mask slot table too (bit-identical to the general kernel).
-        slots = default_curve_slots([m.params for m in self.masks])
-        db = all(sl[0] for sl in slots)
-        doc = all(sl[1] and sl[2] and sl[3] for sl in slots)
-        return fused.develop_post_geo_fused(
-            geo, params, masks,
-            main_mask_all_ones=True,
-            default_bright_curves=db,
-            default_oklch_curves=doc,
-            identity_oklch=doc,
-            default_curve_slots=slots if len(self.masks) > 1 else None,
-        )
+        with span("editor.render"):
+            params = self._packed_params(level)
+            geo = self._geo_at(level)
+            # Single-mask sessions pass no mask array at all.
+            masks = None if len(self.masks) == 1 else self._masks_at(level)
+            if self._use_exact_path():
+                return dev.develop_post_geo(geo, params, masks)
+            # Untouched curves take the kernel's shortcuts, per curve family:
+            # default brightness curves skip the brightness sweeps; default
+            # hue/sat/light curves also skip the OKLCH round trip
+            # (identity_oklch, <= ~2e-3). Multi-mask sessions pass the
+            # per-mask slot table too (bit-identical to the general kernel).
+            slots = default_curve_slots([m.params for m in self.masks])
+            db = all(sl[0] for sl in slots)
+            doc = all(sl[1] and sl[2] and sl[3] for sl in slots)
+            return fused.develop_post_geo_fused(
+                geo, params, masks,
+                main_mask_all_ones=True,
+                default_bright_curves=db,
+                default_oklch_curves=doc,
+                identity_oklch=doc,
+                default_curve_slots=slots if len(self.masks) > 1 else None,
+            )
 
     def histogram(self, level: str = MID) -> np.ndarray:
         """[4, 256] R/G/B/gray histogram of the current render at ``level``

@@ -113,6 +113,7 @@ _TYPE_FMT = {1: "B", 3: "H", 4: "I", 6: "b", 8: "h", 9: "i", 11: "f", 12: "d"}
 
 
 from .._errbase import PhotoEditorError
+from ..utils.profiling import span
 
 
 class DngError(PhotoEditorError, ValueError):
@@ -425,10 +426,11 @@ def _decode_ljpeg_chunks(
             raise DngError(f"chunk {i}: {e}") from e
         return samples
 
-    return _assemble_chunks(
-        one, len(offsets), height, width, rows_per, cols_per,
-        np.uint16, tiled=cols_per < width or rows_per < height,
-    )
+    with span("open.ljpeg"):
+        return _assemble_chunks(
+            one, len(offsets), height, width, rows_per, cols_per,
+            np.uint16, tiled=cols_per < width or rows_per < height,
+        )
 
 
 def _parse_warp_body(body: bytes):

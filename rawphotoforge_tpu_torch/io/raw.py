@@ -21,6 +21,7 @@ from .._device import resolve_device
 from ..ops import demosaic as dm
 from ..ops.develop import replicate_true_edges
 from ..ops.geometry import orient_exif
+from ..utils.profiling import span
 from .dng import RawImage, read_dng
 from .image_io import RAW_EXTENSIONS
 
@@ -366,7 +367,8 @@ def develop_raw_image_padded(raw: RawImage, method: str = "malvar",
     pad += [(0, 0)] * (m.ndim - 2)
     # numpy on the host: torch's reflect pad needs a batch dimension and
     # refuses pads as wide as the image.
-    mosaic01 = normalized_mosaic(raw, np.pad(m, pad, mode="reflect"), dev)
+    with span("open.pad"):
+        mosaic01 = normalized_mosaic(raw, np.pad(m, pad, mode="reflect"), dev)
     cam = cam2srgb_for(raw)
     if raw.pattern == "RGB":
         planes = dm.develop_linear_raw(mosaic01, raw.wb_gains, cam)
@@ -475,9 +477,10 @@ def decode_raw_host(data: bytes,
     if instant_long_edge:
         from ..engine import instant
 
-        lin = instant.quick_linear_from_raw(raw, instant_long_edge)
-        if lin is not None:
-            pv = instant._to_u8_hwc(lin)
+        with span("open.instant"):
+            lin = instant.quick_linear_from_raw(raw, instant_long_edge)
+            if lin is not None:
+                pv = instant._to_u8_hwc(lin)
     return RawHostDecoded(raw, instant=pv, instant_linear=lin)
 
 

@@ -44,6 +44,7 @@ from ..core import color
 from ..core.numerics import div
 from ..core.params import DevelopParams
 from ..ops import pointwise
+from ..utils.profiling import span
 from . import ktrig
 
 LUT_MAX = 65535.0
@@ -341,7 +342,8 @@ def _launch(planes, params, masks, m, main_only, slots, identity_oklch,
     _, h, w = planes.shape
     s = params.breaks.shape[-1]
     check_segments(s)
-    table = pack_table(params, m, s, slots, row_offset, dev)
+    with span("develop.table"):
+        table = pack_table(params, m, s, slots, row_offset, dev)
     # The kernel stages the table with up to 3 floats of alignment padding.
     if (table.numel() + 3) * 4 > _MAX_SMEM_BYTES:
         raise ValueError(f"{m} masks with {s}-segment curves need "
@@ -442,5 +444,6 @@ def develop_post_geo_fused(
         raise ValueError(f"no develop kernel for device {planes.device}")
     slots = _slot_table(m, default_bright_curves, default_oklch_curves,
                         default_curve_slots)
-    return _launch(planes, params, masks, m, main_only, slots,
-                   identity_oklch, row_offset)
+    with span("develop.launch"):
+        return _launch(planes, params, masks, m, main_only, slots,
+                       identity_oklch, row_offset)

@@ -3,15 +3,17 @@
 The reference's only tracing is per-call wall-clock printouts
 (gpu_image_processing.rs:396-397, web/main.ts:781, raw_photo_forge.py:1891).
 Here: a barrier on the devices of a result, a device-time measurement on
-CUDA events, a stage timer with a per-stage report, and a
-``torch.profiler`` trace context (named ``xla_trace`` after its JAX
-counterpart).
+CUDA events, and ``span``, the named host spans the program opens at its
+layer boundaries (``editor.*``, ``develop.*``, ``open.*``). A span costs a
+flag check when nothing listens; under ``torch.profiler`` it is an event
+of the profiler's trace, on the clock of the card's kernels; under
+``span_log`` it is a record of host nanoseconds.
 """
 
 from __future__ import annotations
 
 import contextlib
-import os
+import threading
 import time
 
 import numpy as np
@@ -117,60 +119,71 @@ def device_time(fn, *args, iters: int = 10, chain=None,
     return window / k
 
 
-class StageTimer:
-    """Accumulate named stage timings and print a report."""
+# The profiler's event for a span: a FUNCTION-scope record function, an
+# event of the trace on the profiler's clock that, unlike a user annotation
+# (``torch.profiler.record_function``), the profiler does not project onto
+# the card's timeline as a range of device work.
+_TRACE_EVENT = torch._C._profiler._RecordFunctionFast
+_NULL = contextlib.nullcontext()
+_LOG: list | None = None     # the open span log, or None
+
+
+class _Stack(threading.local):
+    """The names of the spans open on this thread, innermost last."""
 
     def __init__(self):
-        self.stages: dict[str, list[float]] = {}
+        self.names = []
 
-    @contextlib.contextmanager
-    def stage(self, name: str):
-        """Time a block. The context yields a holder whose ``.result`` the
-        block sets to its output, so that the stage waits for that output's
-        device work (without it a stage records the enqueue only):
 
-            with timer.stage("develop") as st:
-                st.result = editor.apply()
-        """
-        class _Holder:
-            result = None
+_STACK = _Stack()
 
-        holder = _Holder()
-        t0 = time.perf_counter()
-        try:
-            yield holder
-        finally:
-            # Record even when the block raises (partial stage evidence
-            # beats a silently missing row).
-            if holder.result is not None:
-                fetch_sync(holder.result)
-            self.stages.setdefault(name, []).append(time.perf_counter() - t0)
 
-    def report(self) -> str:
-        lines = ["stage timings (median over calls):"]
-        for name, ts in self.stages.items():
-            lines.append(
-                f"  {name:<28s} {np.median(ts) * 1e3:8.2f} ms  (n={len(ts)})")
-        return "\n".join(lines)
+class _Span:
+    __slots__ = ("name", "event", "log", "parent", "start")
+
+    def __init__(self, name: str):
+        self.name = name
+
+    def __enter__(self):
+        self.event = None
+        if torch.autograd._profiler_enabled():
+            self.event = _TRACE_EVENT(self.name)
+            self.event.__enter__()
+        self.log = _LOG
+        if self.log is not None:
+            stack = _STACK.names
+            self.parent = stack[-1] if stack else None
+            stack.append(self.name)
+            self.start = time.perf_counter_ns()
+
+    def __exit__(self, *exc):
+        if self.log is not None:
+            end = time.perf_counter_ns()
+            _STACK.names.pop()
+            self.log.append((self.name, self.parent, self.start, end))
+        if self.event is not None:
+            self.event.__exit__(None, None, None)
+        return False
+
+
+def span(name: str):
+    """A context manager around a block of host work named ``name``. With
+    neither a profiler running nor a span log open it is one shared null
+    context. It never waits for the card: it times what the host does."""
+    if _LOG is None and not torch.autograd._profiler_enabled():
+        return _NULL
+    return _Span(name)
 
 
 @contextlib.contextmanager
-def xla_trace(log_dir: str):
-    """Trace the block with ``torch.profiler`` (CPU activity, and CUDA when
-    a card is present) and write a Chrome trace (viewable in Perfetto) to
-    ``log_dir/trace_<pid>.json``. Yields the profiler, whose
-    ``key_averages()`` sums the events by name."""
-    from torch.profiler import ProfilerActivity, profile
-
-    activities = [ProfilerActivity.CPU]
-    if torch.cuda.is_available():
-        activities.append(ProfilerActivity.CUDA)
-    os.makedirs(log_dir, exist_ok=True)
-    prof = profile(activities=activities)
-    prof.start()
+def span_log():
+    """Record every span entered inside the block, on any thread, as
+    ``(name, parent name, start_ns, end_ns)`` on ``time.perf_counter_ns``
+    (the parent: the span open around it on its thread, or None), into the
+    list this yields."""
+    global _LOG
+    outer, _LOG = _LOG, []
     try:
-        yield prof
+        yield _LOG
     finally:
-        prof.stop()
-        prof.export_chrome_trace(
-            os.path.join(log_dir, f"trace_{os.getpid()}.json"))
+        _LOG = outer

@@ -1,12 +1,8 @@
 """The port's utils/profiling on the CPU (the JAX package's
 ``utils/profiling.py``): fetch_sync over nested results, device_time's
 contract (a positive median, the chained difference quotient, a raise on a
-window that is not positive), StageTimer (a stage recorded even when its
-block raises), xla_trace's Chrome trace, and ``cli develop`` waiting with
-fetch_sync."""
-
-import json
-import os
+window that is not positive), and ``cli develop`` waiting with fetch_sync.
+The spans and the work counters: ``test_torch_spans.py``."""
 
 import numpy as np
 import pytest
@@ -48,28 +44,6 @@ def test_device_time_raises_on_a_window_that_is_not_positive(monkeypatch):
     with pytest.raises(RuntimeError, match="non-positive window"):
         profiling.device_time(lambda a: a + 1, torch.ones(3),
                               chain=lambda i, out, args: (out,), max_iters=8)
-
-
-def test_stage_timer_records_a_raising_stage():
-    timer = profiling.StageTimer()
-    with timer.stage("develop") as st:
-        st.result = torch.ones(3) * 2
-    with pytest.raises(ValueError):
-        with timer.stage("encode"):
-            raise ValueError("boom")
-    assert set(timer.stages) == {"develop", "encode"}
-    report = timer.report()
-    assert report.startswith("stage timings") and "encode" in report and "(n=1)" in report
-
-
-def test_xla_trace_writes_a_chrome_trace(tmp_path):
-    with profiling.xla_trace(str(tmp_path / "trace")) as prof:
-        torch.rand(64, 64).sum()
-    files = os.listdir(tmp_path / "trace")
-    assert len(files) == 1 and files[0].endswith(".json")
-    with open(tmp_path / "trace" / files[0]) as f:
-        assert "traceEvents" in json.load(f)
-    assert len(prof.key_averages()) > 0
 
 
 def test_cli_develop_waits_with_fetch_sync(tmp_path, monkeypatch):
