@@ -7,9 +7,9 @@ Run from the root of a checkout, on a machine with an NVIDIA card:
 
 Phases (any failure raises, and the script exits non-zero):
  1. the card's name and power limit; the builds, started together, of the
-    develop kernel, the RAW kernel and the JPEG kernels (nvcc, sm_90a) and
-    of the native host library (g++), with build seconds and the ptxas
-    register/spill report;
+    develop kernel, the RAW kernel, the JPEG kernels, the geodesic flood and
+    the geometry kernel (nvcc, sm_90a) and of the native host library (g++),
+    with build seconds and the ptxas register/spill report;
  2a. the edit stack's device functions against their torch twins, bit for
     bit and exhaustively: the OKLab cube root over every f32 in [0, 2],
     the sRGB OETF over every f32 in [0, 64], and the curve rescales (a
@@ -23,8 +23,12 @@ Phases (any failure raises, and the script exits non-zero):
     image in a PhotoEditor on the card with the benchmark edit, geometry,
     sharpening and three regional masks (M=4): FULL/MID/LOW renders,
     histogram, clipping, the kernel render against the exact-LUT anchor,
-    and `cli develop` on a 24 MP 16-bit PPM; the launch count of the
-    kernel over that run;
+    and `cli develop` on a 24 MP 16-bit PPM; the launch counts of the
+    develop and geometry kernels over that run;
+ 3b. the geometry kernel's output that editor cached, at each level, bit
+    for bit the plain torch chain (its twin) on the card; the kernel against
+    the chain at 45 MP in four slider cases, and CUDA-event times there
+    beside its byte bound;
  4. CUDA-event timings per 24 MP variant beside the byte and operation
     bounds, the twin's time, and the editor's render latency per level;
  5. the one-pass RAW kernel held against its plain torch twin, bit for
@@ -154,6 +158,8 @@ Other modes print only measurements, or check what one card cannot show:
                                            # and with one stage cut out
     python3 chip_smoke.py --geodesic-ab    # the flood kernel with one
                                            # stage cut out
+    python3 chip_smoke.py --geometry-ab    # the geometry kernel with other
+                                           # tiles and block sizes
     python3 chip_smoke.py --mesh-cards     # a host with several cards:
                                            # phase 12b over NCCL, one rank a
                                            # card, and `cli batch` spawned and
@@ -504,7 +510,7 @@ def phase_main_path(dev, log):
     from rawphotoforge_tpu_torch.core.params import EditParameters
     from rawphotoforge_tpu_torch.engine.editor import FULL, LOW, MID, PhotoEditor
     from rawphotoforge_tpu_torch.io import image_io
-    from rawphotoforge_tpu_torch.kernels import fused
+    from rawphotoforge_tpu_torch.kernels import fused, geometry
 
     h, w = PHOTO_HW
     rng = np.random.default_rng(SEED + 1)
@@ -535,6 +541,7 @@ def phase_main_path(dev, log):
         for n, p in zip(["main", *names], [main, *regional])]})
 
     fused.LAUNCHES = 0  # the main path's run starts here
+    geometry.KERNEL_LAUNCHES = dict.fromkeys(geometry.KERNEL_LAUNCHES, 0)
     t0 = time.perf_counter()
     ed = PhotoEditor.from_rgb_f32(img, device=dev)
     for name, logit in zip(names, logits):
@@ -551,11 +558,14 @@ def phase_main_path(dev, log):
                    "--histogram"])
     torch.cuda.synchronize()
     launches = fused.LAUNCHES  # the main path's run ends here
+    geo_launches = geometry.KERNEL_LAUNCHES["geometry_sharpen_kernel"]
     t_main = time.perf_counter() - t0
     check(rc == 0, f"cli develop exited {rc}")
     check(launches > 0, "the main path never launched the develop kernel")
+    check(geo_launches > 0, "the main path never launched the geometry kernel")
     log(f"phase 3: main path (editor FULL/MID/LOW + histogram + clipping + "
-        f"cli develop) in {t_main:.2f} s; develop kernel launches {launches}")
+        f"cli develop) in {t_main:.2f} s; develop kernel launches {launches}, "
+        f"geometry kernel launches {geo_launches}")
 
     for level, r in renders.items():
         lh, lw = ed.level_shape(level)
@@ -598,7 +608,59 @@ def phase_main_path(dev, log):
     for p in (ppm, out_ppm):
         os.unlink(p)
     os.rmdir(tmp)
-    return ed, launches, kernel_full
+    return ed, launches, geo_launches
+
+
+def phase_geometry_kernel(dev, ed, card, log):
+    """Phase 3b: the geometry stage phase 3's editor cached (lens distortion
+    -20, sharpness 30: the kernel's output) bit for bit against the plain
+    torch chain, kernels/geometry's twin, on the card at each level's bucket
+    grid; then the kernel against the chain at 45 MP (GEOMETRY_TIME_HW,
+    true extent GEOMETRY_TIME_EXTENT) with both sliders, each alone and at
+    the range's end, and its times there (``geometry_times``). Returns the
+    kernel's row of the kernels table."""
+    import torch
+
+    from rawphotoforge_tpu_torch.engine.editor import FULL, LOW, MID
+    from rawphotoforge_tpu_torch.kernels import geometry
+
+    main = ed._find("main").params
+    dist, amount = float(main.lens_distortion), float(main.sharpness) / 100.0 * 2.0
+    before = dict(geometry.KERNEL_LAUNCHES)
+    for level in (FULL, MID, LOW):
+        plain = geometry.geometry_sharpen_ref(ed._original_at(level).contiguous(), dist,
+                                              amount, ed.level_shape(level))
+        same_bits(ed._geo_at(level), plain,
+                  f"phase 3b: editor {level} geometry kernel vs the plain chain")
+    check(geometry.KERNEL_LAUNCHES == before, "phase 3b: the editor's geometry cache missed")
+    log(f"phase 3b: editor geometry (distortion {dist}, sharpness {main.sharpness}) at "
+        f"FULL/MID/LOW {[ed._original_at(lv).shape[1:] for lv in (FULL, MID, LOW)]} "
+        f"bit for bit the plain chain on the card")
+
+    h, w = GEOMETRY_TIME_HW
+    planes = geometry_planes(np.random.default_rng(SEED + 11), h, w, dev)
+    err = 0.0
+    for d, sharp in ((40.0, 55.0), (-100.0, 5.0), (0.0, 100.0), (100.0, 0.0)):
+        a = sharp / 100.0 * 2.0
+        ours = geometry.geometry_sharpen(planes, d, a, GEOMETRY_TIME_EXTENT)
+        plain = geometry.geometry_sharpen_ref(planes, d, a, GEOMETRY_TIME_EXTENT)
+        same_bits(ours, plain, f"phase 3b: {w}x{h} distortion {d} sharpness {sharp}")
+        err = max(err, float((ours - plain).abs().max()))
+        del ours, plain
+    times = {}
+    info = geometry_times(dev, times, planes)
+    del planes
+    torch.cuda.empty_cache()
+    check(info["launches_per_call"] == 1.0,
+          f"phase 3b: {info['launches_per_call']} geometry launches a call, not 1")
+    key = f"{w}x{h}"
+    row = dict(ms=times[f"geometry_stage_{key}"], plain_ms=times[f"geometry_plain_{key}"],
+               bound_ms=info["bound_ms"], bound_by="bytes", max_abs_err=err)
+    log(f"phase 3b: {w}x{h} (true {GEOMETRY_TIME_EXTENT[1]}x{GEOMETRY_TIME_EXTENT[0]}) "
+        f"kernel bit for bit the plain chain in 4 slider cases; distortion 40 sharpness "
+        f"55: kernel {row['ms']:.4f} ms, {info['stage_pct_of_bound']:.1f}% of the "
+        f"{row['bound_ms']:.4f} ms byte bound; plain chain {row['plain_ms']:.4f} ms [{card}]")
+    return row
 
 
 def _parse_flags(flags):
@@ -2424,7 +2486,7 @@ def phase_server(dev, card, log, dng_path):
     from rawphotoforge_tpu_torch.engine.editor import LOW, MID, PhotoEditor
     from rawphotoforge_tpu_torch.engine.session import Settings
     from rawphotoforge_tpu_torch.io import image_io, jpegbits, jpegenc, raw as rawio
-    from rawphotoforge_tpu_torch.kernels import fused, geodesic, jpeg_wire
+    from rawphotoforge_tpu_torch.kernels import fused, geodesic, geometry, jpeg_wire
     from rawphotoforge_tpu_torch.utils.transfer import fetch_u8_hwc
 
     with open(dng_path, "rb") as f:
@@ -2432,8 +2494,9 @@ def phase_server(dev, card, log, dng_path):
     tmp = tempfile.mkdtemp(prefix="chip_smoke_server_")
     twin_calls = {}
     twins = [(fused, "develop_post_geo_fused_ref"), (geodesic, "sweep_ref"),
-             (jpegenc, "blockify"), (jpegbits, "prepack"),
-             (jpegbits, "scan_from_words"), (jpegbits, "concat_words")]
+             (geometry, "geometry_sharpen_ref"), (jpegenc, "blockify"),
+             (jpegbits, "prepack"), (jpegbits, "scan_from_words"),
+             (jpegbits, "concat_words")]
     real = {(m, n): getattr(m, n) for m, n in twins}
 
     def counted(name, fn):
@@ -2457,19 +2520,21 @@ def phase_server(dev, card, log, dng_path):
             if t.name in ("rpf-open", "rpf-prewarm"):
                 t.join(300)
         saved = (fused.LAUNCHES, dict(geodesic.KERNEL_LAUNCHES),
-                 dict(jpeg_wire.KERNEL_LAUNCHES))
+                 dict(jpeg_wire.KERNEL_LAUNCHES), dict(geometry.KERNEL_LAUNCHES))
         try:
             return fn()
         finally:
             fused.LAUNCHES = saved[0]
             geodesic.KERNEL_LAUNCHES.update(saved[1])
             jpeg_wire.KERNEL_LAUNCHES.update(saved[2])
+            geometry.KERNEL_LAUNCHES.update(saved[3])
 
     for (m, n), fn in real.items():
         setattr(m, n, counted(n, fn))
     PhotoEditor.from_host = classmethod(gated_from_host)
     geodesic.KERNEL_LAUNCHES = dict.fromkeys(geodesic.KERNEL_LAUNCHES, 0)  # run starts
     jpeg_wire.KERNEL_LAUNCHES = dict.fromkeys(jpeg_wire.KERNEL_LAUNCHES, 0)
+    geometry.KERNEL_LAUNCHES = dict.fromkeys(geometry.KERNEL_LAUNCHES, 0)
     fused.LAUNCHES = 0
     t_phase = time.perf_counter()
     times = {}
@@ -2654,7 +2719,7 @@ def phase_server(dev, card, log, dng_path):
             httpd.shutdown()
             httpd.server_close()
     launches = dict(geodesic.KERNEL_LAUNCHES, develop=fused.LAUNCHES,
-                    **jpeg_wire.KERNEL_LAUNCHES)  # run ends
+                    **jpeg_wire.KERNEL_LAUNCHES, **geometry.KERNEL_LAUNCHES)  # run ends
     t_phase = time.perf_counter() - t_phase
     expect = ref.save_bytes("JPEG")
     check(exported == expect, "the async export differs from the direct editor's "
@@ -2731,18 +2796,21 @@ def write_mesh_dngs(tmp, log):
 
 def launch_counts():
     """Every kernel's launch counter, by kernel name."""
-    from rawphotoforge_tpu_torch.kernels import fused, geodesic, jpeg_wire, raw_pipeline
+    from rawphotoforge_tpu_torch.kernels import (fused, geodesic, geometry, jpeg_wire,
+                                                 raw_pipeline)
 
     return dict(develop=fused.LAUNCHES, **raw_pipeline.KERNEL_LAUNCHES,
-                **jpeg_wire.KERNEL_LAUNCHES, **geodesic.KERNEL_LAUNCHES)
+                **jpeg_wire.KERNEL_LAUNCHES, **geodesic.KERNEL_LAUNCHES,
+                **geometry.KERNEL_LAUNCHES)
 
 
 def zero_launches():
-    from rawphotoforge_tpu_torch.kernels import fused, geodesic, jpeg_wire, raw_pipeline
+    from rawphotoforge_tpu_torch.kernels import (fused, geodesic, geometry, jpeg_wire,
+                                                 raw_pipeline)
 
     fused.LAUNCHES = 0
     for counts in (raw_pipeline.KERNEL_LAUNCHES, jpeg_wire.KERNEL_LAUNCHES,
-                   geodesic.KERNEL_LAUNCHES):
+                   geodesic.KERNEL_LAUNCHES, geometry.KERNEL_LAUNCHES):
         for k in counts:
             counts[k] = 0
 
@@ -3200,12 +3268,39 @@ def phase_mesh(dev, card, log):
     return launches
 
 
+# -- the geometry-and-sharpen kernel (csrc/geometry.cu) ---------------------------
+
+# (H, W, true extent or None) of the cases held bit for bit to the twin:
+# whole 64x32 tiles, partial tiles, W % 4 != 0, a bucket pad (one of a row
+# and a column among them), and axes of 1, 2 and 3 pixels, where the blur's
+# reflect degrades to clipping.
+GEOMETRY_HW = ((96, 128, None), (70, 131, (69, 130)), (128, 256, (100, 230)),
+               (37, 50, (36, 49)), (33, 65, None), (1, 7, None), (2, 9, None),
+               (3, 5, None), (7, 1, None), (6, 2, (5, 2)), (9, 3, (9, 2)))
+# Lens-distortion slider values: the range's ends, near 0 on both sides, 0
+# (the sharpen-only path), and 0.125, whose coordinates land within the snap
+# threshold of whole pixels (snap_near_integer moves them).
+GEOMETRY_DISTORTIONS = (-100.0, -40.0, -1.0, 0.0, 0.125, 1.0, 40.0, 100.0)
+GEOMETRY_SHARPNESS = (0.0, 5.0, 100.0)
+# The north star's bucket grid and true extent (PERF.md's 45 MP cells).
+GEOMETRY_TIME_HW = (5504, 8192)
+GEOMETRY_TIME_EXTENT = (5464, 8192)
+
+
+def geometry_planes(rng, h, w, dev):
+    """Seeded planes for the geometry kernel's cases: linear values in
+    [0, 1), squared as a render's shadows are."""
+    import torch
+
+    return torch.from_numpy(rng.random((3, h, w), dtype=np.float32) ** 2).to(dev)
+
+
 # -- the card fuzz (phase 13) ------------------------------------------------------
 
 # Phase 13's seeds a part; tools/torch_card_fuzz.py runs 24, 8, 8, 4, 4, 4,
-# 4, 4 and 4 by default.
+# 4, 4, 4 and 8 by default.
 CARD_FUZZ_COUNTS = {"fused": 6, "slots": 2, "raw": 2, "xtrans": 1, "identity": 1,
-                    "tone": 1, "sparse": 1, "prepacked": 1, "packed": 1}
+                    "tone": 1, "sparse": 1, "prepacked": 1, "packed": 1, "geometry": 4}
 
 
 def load_card_fuzz():
@@ -3461,7 +3556,8 @@ def kernel_times(dev, card, jpeg_only=False):
     packed once (``..._table_packed_once``); the three JPEG kernels and the
     packed wire run at 24 MP and 45.4 MP on jpeg_scene (``jpeg_only``:
     only these, ``--kernel-times --jpeg``), with the pack call's parts
-    alone; then the MID flood (both modes)."""
+    alone; then the MID flood (both modes) and, but with ``--jpeg``, the
+    45 MP geometry stage (``geometry_times``)."""
     import torch
 
     from rawphotoforge_tpu_torch.core.params import pack_params
@@ -3502,7 +3598,54 @@ def kernel_times(dev, card, jpeg_only=False):
     d = torch.full((h, w), 1e9, device=dev)
     d[h // 2, w // 2] = 0.0
     times[f"flood_{h}x{w}"] = median_time(lambda: geodesic.flood(d, gv, gh))
-    return {"card": card, "root": ROOT, "ms": times}
+    out = {"card": card, "root": ROOT, "ms": times}
+    if not jpeg_only:
+        del d, gv, gh
+        out["geometry"] = geometry_times(dev, times)
+    return out
+
+
+def geometry_times(dev, times, planes=None):
+    """The editor's geometry stage at 45 MP (GEOMETRY_TIME_HW, true extent
+    GEOMETRY_TIME_EXTENT; lens distortion 40, sharpness 55, as a geodrag
+    tick; ``planes`` seeded when not given): ``geometry_stage_<w>x<h>`` as
+    this tree's editor runs it (the kernel through kernels/geometry) and
+    ``geometry_plain_<w>x<h>``, the plain torch chain (its twin) on the
+    card, into ``times``. A tree from before the kernel has neither and
+    times its editor's chain for both. Returns the byte bound (the planes
+    read once and written once at 3.35 TB/s), the stage's share of it and
+    its kernel launches a call."""
+    import torch
+
+    h, w = GEOMETRY_TIME_HW
+    ext, dist, amount = GEOMETRY_TIME_EXTENT, 40.0, 55.0 / 100.0 * 2.0
+    if planes is None:
+        planes = geometry_planes(np.random.default_rng(SEED + 11), h, w, dev)
+    try:
+        from rawphotoforge_tpu_torch.kernels import geometry
+        stage, plain = geometry.geometry_sharpen, geometry.geometry_sharpen_ref
+        counter = geometry.KERNEL_LAUNCHES
+    except ImportError:  # the parent's _geo_at on a padded grid
+        from rawphotoforge_tpu_torch.ops import develop as dev_ops
+        from rawphotoforge_tpu_torch.ops.sharpen import unsharp_mask
+
+        def plain(p, d, a, e):
+            return unsharp_mask(dev_ops.replicate_true_edges(
+                dev_ops.geometry_stage(p, d, e), *e), a)
+
+        stage, counter = plain, {}
+    before = counter.get("geometry_sharpen_kernel", 0)
+    calls = 5 * (2 + 20)  # median_time's windows, each warmed twice
+    key = f"{w}x{h}"
+    times[f"geometry_stage_{key}"] = median_time(lambda: stage(planes, dist, amount, ext))
+    launches = (counter.get("geometry_sharpen_kernel", 0) - before) / calls
+    times[f"geometry_plain_{key}"] = median_time(lambda: plain(planes, dist, amount, ext))
+    del planes
+    torch.cuda.empty_cache()
+    bound_ms = 2 * 3 * h * w * 4 / PEAK_BYTES_S * 1e3
+    return {"bound_ms": bound_ms,
+            "stage_pct_of_bound": 100.0 * bound_ms / times[f"geometry_stage_{key}"],
+            "launches_per_call": launches}
 
 
 def pack_parts(dev, words, bits):
@@ -3783,6 +3926,49 @@ def geodesic_ab(dev, card, log):
            card, log, "geodesic-ab")
 
 
+# --geometry-ab: the geometry-and-sharpen kernel built with other output
+# tiles and block sizes (each bit-identical to the shipped build; their
+# times chose the shipped 64x32 tile of 256 threads), on a geodrag tick at
+# 45 MP, the sharpen alone and the warp alone, then a torch copy of the
+# same bytes (the data movement alone, on torch's copy kernel).
+_AB_GEO_TILE = "constexpr int kTileW = 64, kTileH = 32, kRadius = 2"
+
+
+def _geo_tile(w, h):
+    return [(_AB_GEO_TILE, f"constexpr int kTileW = {w}, kTileH = {h}, kRadius = 2")]
+
+
+GEOMETRY_AB_VARIANTS = {
+    "shipped": [],
+    "tile_32x16": _geo_tile(32, 16),
+    "tile_32x32": _geo_tile(32, 32),
+    "tile_64x16": _geo_tile(64, 16),
+    "tile_128x16": _geo_tile(128, 16),
+    "blocks_of_128": [("constexpr int kThreads = 256;", "constexpr int kThreads = 128;")],
+    "blocks_of_512": [("constexpr int kThreads = 256;", "constexpr int kThreads = 512;")],
+}
+
+
+def geometry_ab(dev, card, log):
+    """The geometry kernel with each of GEOMETRY_AB_VARIANTS at 45 MP."""
+    import torch
+
+    from rawphotoforge_tpu_torch.kernels import geometry
+
+    h, w = GEOMETRY_TIME_HW
+    planes = geometry_planes(np.random.default_rng(SEED + 11), h, w, dev)
+    cases = [(f"{name}_{w}x{h}", lambda d=d, s=s: geometry.geometry_sharpen(
+        planes, d, s / 100.0 * 2.0, GEOMETRY_TIME_EXTENT))
+        for name, d, s in (("geodrag_tick", 40.0, 55.0), ("sharpen_only", 0.0, 55.0),
+                           ("warp_only", 40.0, 0.0))]
+    ab_run(geometry, "geometry.cu", "rpf_geometry_sharpen_launch", GEOMETRY_AB_VARIANTS,
+           cases, card, log, "geometry-ab")
+    dst = torch.empty_like(planes)
+    ms = median_time(lambda: dst.copy_(planes))
+    log(f"geometry-ab: torch copy of the planes ({planes.numel() * 8 / 1e9:.3f} GB, half "
+        f"read, half written): median {ms:.4f} ms [{card}]")
+
+
 def torch_full_seeded(dev, h, w):
     """A MID distance map: 1e9 everywhere but a seed at the centre."""
     import torch
@@ -3828,8 +4014,14 @@ def main() -> int:
     from rawphotoforge_tpu_torch import native
     from rawphotoforge_tpu_torch.kernels import geodesic, jpeg_wire, raw_pipeline
 
-    # One build per source, all started together.
+    # One build per source, all started together (a copy of this script in
+    # a tree from before the geometry kernel builds the others).
     libs = (fused, raw_pipeline, jpeg_wire, geodesic, native)
+    try:
+        from rawphotoforge_tpu_torch.kernels import geometry
+        libs += (geometry,)
+    except ImportError:
+        pass
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(libs)) as pool:
         for fut in [pool.submit(m.library) for m in libs]:
@@ -3858,12 +4050,16 @@ def main() -> int:
     if "--geodesic-ab" in sys.argv:
         geodesic_ab(dev, card, log)
         return 0
+    if "--geometry-ab" in sys.argv:
+        geometry_ab(dev, card, log)
+        return 0
     if "--mesh-cards" in sys.argv:
         mesh_cards(dev, card, log)
         return 0
     phase_device_functions(dev, log)
     worst = phase_kernel_vs_twin(dev, log)
-    ed, launches, _ = phase_main_path(dev, log)
+    ed, launches, geo_launches = phase_main_path(dev, log)
+    geometry_row = phase_geometry_kernel(dev, ed, card, log)
     timing = phase_timing(dev, ed, card, log)
     del ed
     torch.cuda.empty_cache()
@@ -3886,7 +4082,8 @@ def main() -> int:
     png_launches = phase_png_open(dev, card, log)
     # Each kernel's launches, summed over the main paths that drive it (each
     # counted from zero just before its path and read just after).
-    log(f"launches by path: develop frame {launches}, RAW batch {batch_launches}, "
+    log(f"launches by path: develop frame {launches} (geometry {geo_launches}), "
+        f"RAW batch {batch_launches}, "
         f"vendor path {vendor_launches}, masks and exports {mask_launches}, "
         f"server {server_launches}, multi-device {mesh_launches}, "
         f"16-bit PNG open {png_launches}")
@@ -3931,6 +4128,15 @@ def main() -> int:
     rows.append(("geodesic_sweep_kernel", "rawphotoforge_tpu_torch/csrc/geodesic.cu",
                  "rawphotoforge_tpu/ops/masking.py:123-199 (lax.scan, no Pallas)",
                  mask_launches["geodesic_sweep_kernel"], 0.0, geodesic_row))
+    # The geometry kernel replaces jnp code (no Pallas kernel) and is held to
+    # its twin, the plain chain, bit for bit (phase 3b). Its times: a
+    # geodrag tick at 45 MP; bound_ms the planes read once and written once.
+    rows.append(("geometry_sharpen_kernel", "rawphotoforge_tpu_torch/csrc/geometry.cu",
+                 "rawphotoforge_tpu/ops/geometry.py lens_distortion + ops/sharpen.py "
+                 "unsharp_mask (jnp, no Pallas)",
+                 geo_launches + server_launches["geometry_sharpen_kernel"]
+                 + mesh_launches.get("geometry_sharpen_kernel", 0),
+                 geometry_row["max_abs_err"], geometry_row))
     table = {"kernels": [{
         "name": name, "route": "cuda", "source": src, "replaces": tpu,
         "launches": n, "max_abs_err": err, "ms": case["ms"],

@@ -49,14 +49,14 @@ from .._errbase import PhotoEditorError
 from ..core.color import linear_to_srgb, srgb_to_linear
 from ..core.params import EditParameters, default_curve_slots, pack_params
 from ..io import image_io
-from ..kernels import fused
+from ..kernels import fused, geometry
 from ..ops import develop as dev
 from ..ops.geometry import (resize_bilinear, resize_bilinear_extents,
                             resize_long_edge_shape)
-from ..ops.sharpen import unsharp_mask
 from ..ops.stats import (clipping_stats, clipping_stats_rect, histogram_rgbl,
                          histogram_rgbl_rect)
 from ..utils.profiling import span
+from . import prewarm
 
 FULL, MID, LOW = "full", "mid", "low"
 DEFAULT_MID_LONG_EDGE = 1280  # uiPreviewSize default (web/main.ts:31-35)
@@ -311,6 +311,7 @@ class PhotoEditor:
         with ``opened_from_preview`` recording the decode error, unless
         ``preview_fallback`` is False. ``open_host`` then ``from_host``."""
         dev_ = resolve_device(device)  # the no-card error comes first
+        prewarm.build_async(dev_)  # the session's kernels build during the decode
         ho = cls.open_host(
             data, fmt, preview_fallback=preview_fallback,
             mid_long_edge=int(kwargs.get("mid_long_edge",
@@ -681,17 +682,16 @@ class PhotoEditor:
         if cached is not None and cached[0] == key:
             return cached[1]
         with span("editor.geometry"):
-            out = self._original_at(level)
-            th, tw = self._extents[level]
+            # Warp, edge replication and unsharp: one kernel launch on the
+            # card, the plain ops on the CPU (kernels/geometry). The kernel
+            # takes contiguous planes; a portrait photo's oriented planes
+            # can be a transposed view.
+            out = geometry.geometry_sharpen(
+                self._original_at(level).contiguous(), key[0], key[1] / 100.0 * 2.0,
+                self._extents[level])
             if key[0] != 0.0:
-                out = dev.geometry_stage(out, key[0], self._extents[level])
                 COUNTS["warps"] += 1
-                if out.shape[1] > th or out.shape[2] > tw:
-                    # The warp blackens the bucket pad; restore edge
-                    # replication before the stencil reads it.
-                    out = dev.replicate_true_edges(out, th, tw)
             if key[1] != 0.0:
-                out = unsharp_mask(out, key[1] / 100.0 * 2.0)
                 COUNTS["unsharps"] += 1
         self._geo_cache[level] = (key, out)
         return out

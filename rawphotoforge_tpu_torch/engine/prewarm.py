@@ -78,25 +78,58 @@ def preview_shapes(
 
 def server_libraries(device) -> tuple:
     """The library modules the server's path loads on ``device``: the
-    develop, geodesic sweep and JPEG kernels on a card, and the native
-    host library (the host drag and the era renders) everywhere."""
+    develop, geometry-and-sharpen, geodesic sweep and JPEG kernels on a
+    card, and the native host library (the host drag and the era renders)
+    everywhere."""
     from .. import native
-    from ..kernels import fused, geodesic, jpeg_wire
+    from ..kernels import fused, geodesic, geometry, jpeg_wire
 
     if device is not None and device.type == "cuda":
-        return (fused, geodesic, jpeg_wire, native)
+        return (fused, geometry, geodesic, jpeg_wire, native)
     return (native,)
 
 
-def build_libraries(device) -> None:
-    """Build (or load) every library of ``server_libraries(device)``, one
-    thread each; the first failure raises."""
+def session_libraries(device) -> tuple:
+    """The kernel libraries an editing session on ``device`` launches: the
+    develop and geometry-and-sharpen kernels on a card, none elsewhere."""
+    from ..kernels import fused, geometry
+
+    if device is not None and device.type == "cuda":
+        return (fused, geometry)
+    return ()
+
+
+def build_libraries(device, mods=None) -> None:
+    """Build (or load) every library of ``mods`` (by default
+    ``server_libraries(device)``), one thread each; the first failure
+    raises."""
     from concurrent.futures import ThreadPoolExecutor
 
-    mods = server_libraries(device)
-    with ThreadPoolExecutor(len(mods)) as pool:
+    mods = server_libraries(device) if mods is None else mods
+    with ThreadPoolExecutor(max(len(mods), 1)) as pool:
         for fut in [pool.submit(m.library) for m in mods]:
             fut.result()
+
+
+def build_async(device):
+    """Start building ``session_libraries(device)`` on a daemon thread, so
+    that a checkout's first ``nvcc`` runs overlap the caller's host decode
+    instead of following it at the first render and the first geometry
+    pass. Returns the thread, or None off a card. A failure is reported on
+    stderr; the launch that needs the library builds anew and raises."""
+    mods = session_libraries(device)
+    if not mods:
+        return None
+
+    def run():
+        try:
+            build_libraries(device, mods)
+        except Exception as e:  # noqa: BLE001 — met again by the launch
+            print(f"kernel build failed ({type(e).__name__}: {e})", file=sys.stderr)
+
+    t = threading.Thread(target=run, name="rpf-build", daemon=True)
+    t.start()
+    return t
 
 
 def warm_editor_levels(editor, lock) -> None:

@@ -1,5 +1,5 @@
 """The hand-written CUDA kernels (develop, RAW Bayer and X-Trans, the JPEG
-wires, the geodesic flood) against their plain torch twins, on the card. Every test here needs a CUDA device
+wires, the geodesic flood, the geometry and sharpen stage) against their plain torch twins, on the card. Every test here needs a CUDA device
 and skips without one (the kernels have no CPU mode). The file imports
 neither jax nor the test helpers (only chip_smoke.py's case builders), so
 on a machine without jax it runs on its own:
@@ -17,7 +17,9 @@ from rawphotoforge_tpu_torch.core.params import (
 from rawphotoforge_tpu_torch.engine.editor import FULL, LOW, PhotoEditor
 from rawphotoforge_tpu_torch.kernels import fused
 
-from chip_smoke import BAYER_EDGE_HW, GEODESIC_HW, same_bits, twin_flood
+from chip_smoke import (BAYER_EDGE_HW, GEODESIC_HW, GEOMETRY_DISTORTIONS, GEOMETRY_HW,
+                        GEOMETRY_SHARPNESS, GEOMETRY_TIME_EXTENT, GEOMETRY_TIME_HW,
+                        geometry_planes, same_bits, twin_flood)
 
 pytestmark = pytest.mark.cuda
 
@@ -585,6 +587,86 @@ def test_geodesic_cuda_tensors_never_reach_the_twin(dev, monkeypatch):
     with pytest.raises(ValueError, match="contiguous"):
         geodesic.sweep(torch.zeros((8, 6), device=dev).t(), torch.zeros((5, 8), device=dev),
                        torch.zeros((6, 7), device=dev), "down")
+
+
+# -- the geometry-and-sharpen kernel (csrc/geometry.cu) ----------------------------
+
+@pytest.mark.parametrize("h,w,extent", GEOMETRY_HW)
+@pytest.mark.parametrize("distortion", GEOMETRY_DISTORTIONS)
+def test_geometry_kernel_bit_identical_to_twin(dev, h, w, extent, distortion):
+    """geometry_sharpen_kernel against the twin (on the CPU) at every
+    sharpness: one launch a call with work, none when both sliders are 0."""
+    from rawphotoforge_tpu_torch.kernels import geometry
+
+    planes = geometry_planes(np.random.default_rng(h * 1000 + w), h, w, dev)
+    host = planes.cpu()
+    for sharpness in GEOMETRY_SHARPNESS:
+        amount = sharpness / 100.0 * 2.0
+        before = geometry.KERNEL_LAUNCHES["geometry_sharpen_kernel"]
+        ours = geometry.geometry_sharpen(planes, distortion, amount, extent)
+        torch.cuda.synchronize()
+        work = distortion != 0.0 or sharpness != 0.0
+        assert geometry.KERNEL_LAUNCHES["geometry_sharpen_kernel"] == before + work
+        if not work:
+            assert ours is planes
+        twin = geometry.geometry_sharpen_ref(host, distortion, amount, extent)
+        same_bits(ours.cpu(), twin, f"{h}x{w} extent {extent} distortion {distortion} "
+                  f"sharpness {sharpness}")
+
+
+@pytest.mark.parametrize("distortion,sharpness", [(40.0, 55.0), (-100.0, 5.0), (0.0, 100.0),
+                                                  (100.0, 0.0)])
+def test_geometry_kernel_at_45mp_equals_the_plain_chain_on_the_card(dev, distortion,
+                                                                    sharpness):
+    """At the north star's bucket grid (8192x5504, true 8192x5464) the kernel
+    equals the plain torch chain the editor ran before it, on the card."""
+    from rawphotoforge_tpu_torch.kernels import geometry
+
+    h, w = GEOMETRY_TIME_HW
+    planes = geometry_planes(np.random.default_rng(45), h, w, dev)
+    ours = geometry.geometry_sharpen(planes, distortion, sharpness / 100.0 * 2.0,
+                                     GEOMETRY_TIME_EXTENT)
+    plain = geometry.geometry_sharpen_ref(planes, distortion, sharpness / 100.0 * 2.0,
+                                          GEOMETRY_TIME_EXTENT)
+    torch.cuda.synchronize()
+    same_bits(ours, plain, f"45 MP distortion {distortion} sharpness {sharpness}")
+
+
+def test_geometry_cuda_tensors_never_reach_the_twin(dev, monkeypatch):
+    """The editor's geometry stage on the card launches the kernel once a
+    cache miss with work, never the twin, and its planes equal the CPU
+    editor's bit for bit."""
+    from rawphotoforge_tpu_torch.engine import editor as teditor
+    from rawphotoforge_tpu_torch.kernels import geometry
+
+    def refuse(*a, **k):
+        raise AssertionError("the twin ran for a CUDA tensor")
+
+    monkeypatch.setattr(geometry, "geometry_sharpen_ref", refuse)
+    img = np.random.default_rng(3).random((150, 200, 3), dtype=np.float32) ** 2
+    ed = PhotoEditor.from_rgb_f32(img, device=dev, mid_long_edge=100, low_long_edge=50)
+    before = geometry.KERNEL_LAUNCHES["geometry_sharpen_kernel"]
+    counts = dict(teditor.COUNTS)
+    misses = 0
+    for d, s in ((30.0, 0.0), (30.0, 40.0), (-20.0, 40.0), (0.0, 40.0), (0.0, 0.0)):
+        ed.set_lens_distortion(d)
+        ed.set_sharpness(s)
+        ed.apply(FULL)
+        ed.apply(FULL)  # the render cache: no second geometry pass
+        misses += d != 0.0 or s != 0.0
+    assert geometry.KERNEL_LAUNCHES["geometry_sharpen_kernel"] == before + misses
+    assert teditor.COUNTS["warps"] - counts["warps"] == 3
+    assert teditor.COUNTS["unsharps"] - counts["unsharps"] == 3
+    monkeypatch.undo()
+    for d, s in ((-35.0, 60.0), (0.0, 25.0)):
+        cpu = PhotoEditor.from_rgb_f32(img, device="cpu", mid_long_edge=100,
+                                       low_long_edge=50)
+        for e in (ed, cpu):
+            e.set_lens_distortion(d)
+            e.set_sharpness(s)
+        for level in (FULL, LOW):
+            same_bits(ed._geo_at(level).cpu(), cpu._geo_at(level),
+                      f"editor geometry at {level}, distortion {d} sharpness {s}")
 
 
 def test_server_answers_mid_preview_from_a_handler_thread_on_the_card(dev, tmp_path):

@@ -165,6 +165,41 @@ def test_render_cache_geo_cache_and_reset(rng):
     assert ed.crop_rect is None and ed.params().to_json() == type(ed.params())().to_json()
 
 
+@pytest.mark.parametrize("distortion,sharpness", [(30.0, 0.0), (0.0, 40.0), (-45.0, 70.0)])
+def test_geo_at_runs_the_geometry_wrapper_once_a_miss(rng, monkeypatch, distortion,
+                                                      sharpness):
+    """The geometry stage goes through kernels/geometry once a cache miss,
+    equals the former chain (warp, edge replication, unsharp) on the
+    bucket-padded planes, counts warps and unsharps as before, and hits
+    its cache while the key is unchanged."""
+    from rawphotoforge_tpu_torch.engine import editor as teditor
+    from rawphotoforge_tpu_torch.kernels import geometry
+
+    calls = []
+    real = geometry.geometry_sharpen
+
+    def counted(*a, **k):
+        calls.append(a[1:])
+        return real(*a, **k)
+
+    monkeypatch.setattr(geometry, "geometry_sharpen", counted)
+    ed = PhotoEditor.from_rgb_f32(nongray_image(rng, 40, 70), device="cpu", **KW)
+    ed.set_lens_distortion(distortion)
+    ed.set_sharpness(sharpness)
+    before = dict(teditor.COUNTS)
+    geo = ed._geo_at(FULL)
+    assert calls == [(distortion, sharpness / 100.0 * 2.0, (40, 70))]
+    assert {k: teditor.COUNTS[k] - before[k] for k in before} == {
+        "warps": int(distortion != 0.0), "unsharps": int(sharpness != 0.0)}
+    assert tuple(geo.shape) == (3, 128, 128)  # the bucket grid
+    assert torch.equal(geo, geometry.geometry_sharpen_ref(
+        ed._original_at(FULL), distortion, sharpness / 100.0 * 2.0, (40, 70)))
+    ed.set_tone(exposure=0.5)
+    assert ed._geo_at(FULL) is geo and len(calls) == 1
+    ed.set_sharpness(sharpness + 5.0)
+    assert ed._geo_at(FULL) is not geo and len(calls) == 2
+
+
 def test_preset_round_trip_and_atomic_load(rng):
     ours, ref = _pair(rng)
     ours.set_crop(3, 4, 50, 30)

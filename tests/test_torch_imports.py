@@ -170,9 +170,9 @@ def test_chip_smoke_without_a_card_fails_without_a_result():
 
 
 @pytest.mark.parametrize("variants", ["AB_VARIANTS", "BAYER_AB_VARIANTS",
-                                      "JPEG_HUFFMAN_AB_VARIANTS"])
+                                      "JPEG_HUFFMAN_AB_VARIANTS", "GEOMETRY_AB_VARIANTS"])
 def test_chip_smoke_ab_cuts_are_in_csrc(variants):
-    """chip_smoke.py's --develop-ab, --bayer-ab and --jpeg-ab build csrc/
+    """chip_smoke.py's --develop-ab, --bayer-ab, --jpeg-ab and --geometry-ab build csrc/
     with exact lines replaced (on the card a mode fails when a line is
     gone): every cut's text is in csrc/."""
     import chip_smoke

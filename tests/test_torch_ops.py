@@ -20,6 +20,8 @@ from rawphotoforge_tpu_torch.ops import geometry as tgeo
 from rawphotoforge_tpu_torch.ops import sharpen as tsharp
 from rawphotoforge_tpu_torch.ops import stats as tstats
 
+from chip_smoke import (GEOMETRY_DISTORTIONS, GEOMETRY_HW, GEOMETRY_SHARPNESS,
+                        geometry_planes)
 from test_develop import assert_close
 from torch_parity import assert_close_across, full_stack_edit, nongray_image
 
@@ -214,3 +216,120 @@ def test_luma_linear_matches_jax(rng):
     x = (rng.random((3, 48, 160)) * 1.2).astype(np.float32)
     np.testing.assert_array_equal(tstats.luma_linear(_t(x)).numpy(),
                                   np.asarray(jstats.luma_linear(jnp.asarray(x))))
+
+
+# -- the geometry-and-sharpen stage (kernels/geometry.py) -------------------------
+
+def _kernel_model(planes, distortion, amount, extent, snapped=None):
+    """csrc/geometry.cu's definition of each output pixel, in numpy float32:
+    S(r, c) the warped value at the reflected index clamped to the extent
+    it reads, then the 5-tap blur over rows and columns in _blur_axis's
+    order and the unsharp. ``snapped`` (a list) gets the number of
+    coordinates snap_near_integer moved."""
+    f32 = np.float32
+    _, h, w = planes.shape
+    th, tw = extent
+    strength = f32(-0.5) * (f32(distortion) / f32(100.0))
+    warp = distortion != 0.0 and strength != 0.0
+    rep = distortion != 0.0 and (h > th or w > tw)
+    ch, cw = (th - 1, tw - 1) if rep else (h - 1, w - 1)
+
+    def snap(s):
+        r = np.rint(s)
+        thr = np.maximum(np.abs(s) * f32(6e-7), f32(1e-4))
+        near = np.abs(s - r) < thr
+        if snapped is not None:
+            snapped.append(int((near & (s != r)).sum()))
+        return np.where(near, r, s)
+
+    def sample(rows, cols):
+        r, c = np.minimum(rows, ch), np.minimum(cols, cw)
+        if not warp:
+            return planes[:, r][:, :, c]
+        hf, wf = f32(th), f32(tw)
+        aspect = wf / hf
+        cu = ((c.astype(f32) / wf - f32(0.5)) * aspect)[None, :]
+        cv = (r.astype(f32) / hf - f32(0.5))[:, None]
+        denom = f32(1.0) + strength * (cu * cu + cv * cv)
+        fu = (cu / denom) / aspect + f32(0.5)
+        fv = cv / denom + f32(0.5)
+        oob = (fu < 0) | (fu > 1) | (fv < 0) | (fv > 1)
+        px, py = snap(fu * (wf - f32(1))), snap(fv * (hf - f32(1)))
+        x0f, y0f = np.floor(px), np.floor(py)
+        x0 = np.clip(x0f, 0, tw - 1).astype(np.int64)
+        y0 = np.clip(y0f, 0, th - 1).astype(np.int64)
+        x1, y1 = np.minimum(x0 + 1, tw - 1), np.minimum(y0 + 1, th - 1)
+        tx, ty = px - x0f, py - y0f
+        cx0 = planes[:, y0, x0] * (f32(1) - tx) + planes[:, y0, x1] * tx
+        cx1 = planes[:, y1, x0] * (f32(1) - tx) + planes[:, y1, x1] * tx
+        return np.where(oob, f32(0), cx0 * (f32(1) - ty) + cx1 * ty)
+
+    a32 = f32(amount)
+    if a32 == 0:
+        return sample(np.arange(h), np.arange(w))
+    taps = tsharp._gauss_taps(1.0, 2)
+    s = sample(tsharp._pad_index(h, 2), tsharp._pad_index(w, 2))
+    v = f32(0) + taps[0] * s[:, 0:h]
+    for i in range(1, 5):
+        v = v + taps[i] * s[:, i:i + h]
+    b = f32(0) + taps[0] * v[:, :, 0:w]
+    for i in range(1, 5):
+        b = b + taps[i] * v[:, :, i:i + w]
+    x = s[:, 2:h + 2, 2:w + 2]
+    y = x + a32 * (x - b)
+    return np.where(y < 0, f32(0), y)
+
+
+def _geometry_case_planes(h, w):
+    return geometry_planes(np.random.default_rng(h * 1000 + w), h, w, "cpu")
+
+
+@pytest.mark.parametrize("h,w,extent", GEOMETRY_HW)
+@pytest.mark.parametrize("distortion", GEOMETRY_DISTORTIONS)
+def test_geometry_twin_is_the_editor_chain_and_the_kernels_definition(
+        h, w, extent, distortion):
+    """On the CPU the wrapper runs its twin, the editor's former chain (warp,
+    edge replication, unsharp), and never counts a launch; csrc/geometry.cu's
+    per-pixel definition, computed in numpy, equals the twin bit for bit."""
+    from rawphotoforge_tpu_torch.kernels import geometry
+
+    planes = _geometry_case_planes(h, w)
+    ext = extent or (h, w)
+    for sharpness in GEOMETRY_SHARPNESS:
+        amount = sharpness / 100.0 * 2.0
+        before = dict(geometry.KERNEL_LAUNCHES)
+        twin = geometry.geometry_sharpen(planes, distortion, amount, extent)
+        assert geometry.KERNEL_LAUNCHES == before  # the twin never counts
+        assert torch.equal(twin, geometry.geometry_sharpen_ref(planes, distortion,
+                                                               amount, extent))
+        if distortion == 0.0 and sharpness == 0.0:
+            assert twin is planes
+        np.testing.assert_array_equal(
+            _kernel_model(planes.numpy(), distortion, amount, ext).view(np.int32),
+            twin.numpy().view(np.int32), err_msg=f"{distortion} {sharpness}")
+
+
+def test_geometry_snap_case_moves_coordinates():
+    """GEOMETRY_DISTORTIONS' snap case lands coordinates within the
+    threshold of whole pixels (snap_near_integer moves some), so the
+    kernel's snap is checked against the twin's."""
+    moved = []
+    for h, w, extent in GEOMETRY_HW:
+        _kernel_model(_geometry_case_planes(h, w).numpy(), 0.125, 0.0,
+                      extent or (h, w), snapped=moved)
+    assert sum(moved) > 0
+
+
+def test_geometry_wrapper_refuses_bad_inputs():
+    from rawphotoforge_tpu_torch.kernels import geometry
+
+    planes = torch.rand(3, 8, 12)
+    for bad, match in ((planes.double(), "float32"), (planes[:2], r"\[3, H, W\]"),
+                       (planes[0], r"\[3, H, W\]"),
+                       (planes.transpose(1, 2), "contiguous")):
+        with pytest.raises(ValueError, match=match):
+            geometry.geometry_sharpen(bad, 20.0, 0.5)
+    with pytest.raises(TypeError, match="threshold"):  # the kernel computes none
+        geometry.geometry_sharpen(planes, 20.0, 0.5, threshold=0.1)
+    with pytest.raises(ValueError, match="extent"):
+        geometry.geometry_sharpen(planes, 20.0, 0.5, (9, 12))

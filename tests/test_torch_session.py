@@ -106,7 +106,45 @@ def test_warm_async_builds_and_renders_the_levels(capsys):
     finally:
         native.library = real
     assert tpw.server_libraries(torch.device("cpu")) == (native,)
-    assert len(tpw.server_libraries(torch.device("cuda"))) == 4
+    assert len(tpw.server_libraries(torch.device("cuda"))) == 5
+
+
+def test_build_async_builds_the_sessions_kernels_on_a_card_only(monkeypatch, capsys):
+    """An editor's open starts the build of the develop and geometry
+    libraries on a thread of its own before the host decode; off a card it
+    starts nothing. A failed build is reported, never raised there."""
+    from rawphotoforge_tpu_torch.kernels import fused, geometry
+
+    assert tpw.session_libraries(torch.device("cpu")) == ()
+    assert tpw.build_async(torch.device("cpu")) is None
+    assert tpw.session_libraries(torch.device("cuda")) == (fused, geometry)
+    built = []
+
+    class Lib:
+        def __init__(self, name, fail=False):
+            self.name, self.fail = name, fail
+
+        def library(self):
+            if self.fail:
+                raise RuntimeError(f"nvcc failed for {self.name}")
+            built.append(self.name)
+
+    monkeypatch.setattr(tpw, "session_libraries", lambda d: (Lib("a"), Lib("b")))
+    t = tpw.build_async(torch.device("cuda"))
+    t.join(timeout=60)
+    assert not t.is_alive() and sorted(built) == ["a", "b"]
+    assert capsys.readouterr().err == ""
+    monkeypatch.setattr(tpw, "session_libraries", lambda d: (Lib("c", fail=True),))
+    t = tpw.build_async(torch.device("cuda"))
+    t.join(timeout=60)
+    assert "kernel build failed (RuntimeError: nvcc failed for c)" in capsys.readouterr().err
+    opened = []
+    monkeypatch.setattr(tpw, "build_async", opened.append)
+    img = random_linear_image(np.random.default_rng(2), 20, 30)
+    from rawphotoforge_tpu_torch.io import image_io
+
+    PhotoEditor.from_bytes(image_io.encode_ppm16(img), "PPM16", device="cpu")
+    assert opened == [torch.device("cpu")]
 
 
 def test_cli_serve_help(capsys):

@@ -21,7 +21,9 @@ its plain torch twin on the same inputs:
     stream equal to its exact numpy mirror seeded from the device blocks,
     the three files byte-identical (full grid and a padded extent), and
     the blocks, Huffman and pack kernels (csrc/jpeg_encode.cu) equal to
-    their twins.
+    their twins;
+ 9. the geometry-and-sharpen kernel (csrc/geometry.cu) on random frames,
+    extents, lens-distortion and sharpness draws, bit for bit its twin.
 
 Run from the root of a checkout, on a machine with an NVIDIA card:
 
@@ -58,7 +60,7 @@ from rawphotoforge_tpu_torch import native  # noqa: E402  (after the path)
 from rawphotoforge_tpu_torch.core.params import (  # noqa: E402
     CurveState, default_curve_slots, pack_params)
 from rawphotoforge_tpu_torch.io import jpegbits, jpegenc  # noqa: E402
-from rawphotoforge_tpu_torch.kernels import fused, raw_pipeline  # noqa: E402
+from rawphotoforge_tpu_torch.kernels import fused, geometry, raw_pipeline  # noqa: E402
 from rawphotoforge_tpu_torch.kernels import jpeg_wire as jw  # noqa: E402
 from rawphotoforge_tpu_torch.ops import demosaic as dm  # noqa: E402
 from rawphotoforge_tpu_torch.ops import develop as anchor  # noqa: E402
@@ -75,10 +77,11 @@ WIRE_HW = (512, 768)     # the JPEG wires' frame
 WIRE_PAD = (37, 11)      # rows and columns cut off for the padded extent
 QUALITY = 92
 OKLCH_BOUND = 3e-3       # identity_oklch's documented bound
-# Seeds a part, as tools/tpu_fuzz.py's defaults (--seeds 24, --raw-seeds 8).
+# Seeds a part, as tools/tpu_fuzz.py's defaults (--seeds 24, --raw-seeds 8;
+# the geometry part, which that tool lacks, takes --raw-seeds too).
 DEFAULT_COUNTS = {"fused": 24, "slots": 8, "raw": 8, "xtrans": 4,
                   "identity": 4, "tone": 4, "sparse": 4, "prepacked": 4,
-                  "packed": 4}
+                  "packed": 4, "geometry": 8}
 XYZ_TO_CAM = np.array([[0.8, -0.1, -0.05], [-0.3, 1.1, 0.15],
                        [-0.05, 0.15, 0.65]])
 
@@ -407,6 +410,44 @@ def part_packed(dev, n, log):
     return _summary(seeds, keys=())
 
 
+# -- the geometry-and-sharpen kernel ------------------------------------------------
+
+def part_geometry(dev, n, log):
+    """Part 9: the geometry-and-sharpen kernel, bit for bit its twin (on
+    the CPU), on random frames (1 to 400 rows, 1 to 600 columns), true
+    extents (the whole frame or a pad of up to 127 rows and columns), lens
+    distortion (0 one draw in four, else -100..100) and sharpness (0 one
+    draw in four, else 0..100)."""
+    seeds = []
+    for seed in range(n):
+        r = np.random.default_rng(seed + 10000)
+        h, w = int(r.integers(1, 401)), int(r.integers(1, 601))
+        extent = None
+        if r.random() < 0.5:
+            extent = (max(1, h - int(r.integers(0, 128))), max(1, w - int(r.integers(0, 128))))
+        distortion = 0.0 if r.random() < 0.25 else float(r.uniform(-100.0, 100.0))
+        sharpness = 0.0 if r.random() < 0.25 else float(r.uniform(0.0, 100.0))
+        planes = torch.from_numpy(r.random((3, h, w), dtype=np.float32) ** 2).to(dev)
+        amount = sharpness / 100.0 * 2.0
+        before = geometry.KERNEL_LAUNCHES["geometry_sharpen_kernel"]
+        ours = geometry.geometry_sharpen(planes, distortion, amount, extent)
+        launches = geometry.KERNEL_LAUNCHES["geometry_sharpen_kernel"] - before
+        twin = geometry.geometry_sharpen_ref(planes.cpu(), distortion, amount, extent)
+        ours = ours.cpu()
+        nan = torch.isnan(twin)
+        twin_eq = (torch.equal(torch.isnan(ours), nan) and torch.equal(
+            ours[~nan].view(torch.int32), twin[~nan].view(torch.int32)))
+        want = int(dev.type == "cuda" and (distortion != 0.0 or sharpness != 0.0))
+        ok = twin_eq and launches == want
+        log(f"geometry seed {seed}: {'ok' if ok else 'FAIL'} ({h}x{w}, extent {extent}, "
+            f"distortion {distortion:.3f}, sharpness {sharpness:.3f}, "
+            f"launches={launches}, twin_equal={twin_eq})")
+        seeds.append({"seed": seed, "ok": ok, "twin_equal": twin_eq, "hw": [h, w],
+                      "extent": extent, "distortion": distortion,
+                      "sharpness": sharpness})
+    return _summary(seeds, keys=())
+
+
 # (artifact key, count key, part) in tools/tpu_fuzz.py's order.
 PARTS = (("fused_kernel", "fused", part_fused),
          ("slot_elision", "slots", part_slots),
@@ -416,7 +457,8 @@ PARTS = (("fused_kernel", "fused", part_fused),
          ("tone_curve_identity", "tone", part_tone),
          ("sparse_wire", "sparse", part_sparse),
          ("prepacked_wire", "prepacked", part_prepacked),
-         ("packed_wire", "packed", part_packed))
+         ("packed_wire", "packed", part_packed),
+         ("geometry_kernel", "geometry", part_geometry))
 
 
 def run(dev, counts=None, log=print) -> dict:
@@ -469,7 +511,8 @@ def main(argv=None) -> int:
     ap.add_argument("--seeds", type=int, default=DEFAULT_COUNTS["fused"],
                     help="develop-kernel draws (part 1)")
     ap.add_argument("--raw-seeds", type=int, default=DEFAULT_COUNTS["raw"],
-                    help="Bayer draws (part 2); parts 3-8 take half, at least 2")
+                    help="Bayer draws (part 2) and geometry draws (part 9); parts "
+                         "3-8 take half, at least 2")
     args = ap.parse_args(argv)
     from chip_smoke import card_line
 
@@ -480,7 +523,8 @@ def main(argv=None) -> int:
     half = max(2, args.raw_seeds // 2)
     counts = {"fused": args.seeds, "raw": args.raw_seeds,
               **{k: half for k in ("xtrans", "identity", "tone", "sparse",
-                                   "prepacked", "packed")}}
+                                   "prepacked", "packed")},
+              "geometry": args.raw_seeds}
     card = card_line()
     print(f"device: {card}", flush=True)
     result = run(dev, counts, log=lambda m: print(m, flush=True))

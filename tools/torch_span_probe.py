@@ -7,7 +7,8 @@ from the root of a checkout, on a machine with a card. It is a traced run
 of ``perfbench/run.py`` (the same set-up, window and check), with three
 readings added from outside the harness: a span log around
 ``PhotoEditor.open`` (the ``open.*`` spans), the work counters
-(``core/params.COUNTS``, ``engine/editor.COUNTS``) read when the window's
+(``core/params.COUNTS``, ``engine/editor.COUNTS``, the geometry kernel's
+``KERNEL_LAUNCHES``) read when the window's
 profiler starts and stops, and the program's ``editor.*`` / ``develop.*``
 spans taken from that profiler's trace, whose device idle gaps it names
 again by the innermost span at their middle, the program's included. It
@@ -50,7 +51,12 @@ def _counts():
     from rawphotoforge_tpu_torch.core import params
     from rawphotoforge_tpu_torch.engine import editor
 
-    return {**params.COUNTS, **editor.COUNTS}
+    counts = {**params.COUNTS, **editor.COUNTS}
+    try:  # the geometry kernel's launches, where the tree has the kernel
+        from rawphotoforge_tpu_torch.kernels import geometry
+    except ImportError:
+        return counts
+    return {**counts, **geometry.KERNEL_LAUNCHES}
 
 
 def span_cost_us(n: int = 200_000) -> dict:
@@ -137,6 +143,8 @@ def probe(workload: str, seed: int, seconds: float, device, **run_kwargs) -> dic
                            for n in TICK_SPANS},
         "curve_fits_per_tick": done["curve_fits"] / ticks,
         "geometry_passes_per_tick": (done["warps"] + done["unsharps"]) / ticks,
+        "geometry_launches_per_tick": (done["geometry_sharpen_kernel"] / ticks
+                                       if "geometry_sharpen_kernel" in done else None),
         "counts_in_window": done,
         "open_span_ms": open_ms,
         "open_spans": [[n, p, (b - a) * 1e-6] for n, p, a, b in seen["open"]],
