@@ -27,9 +27,10 @@ from .._device import resolve_device
 from . import curve as curve_mod
 from .curve import CURVE_RESOLUTION, MAX_CTRL
 
-# Packing work done since the counts were last set to 0: one curve fit per
-# ``CurveState.packed`` call that ``pack_params`` makes.
-COUNTS = {"curve_fits": 0}
+# Packing work done since the counts were last set to 0, one per
+# ``CurveState.packed`` call: a PCHIP fit (``curve_fits``) or a reuse of the
+# curve's last fit (``curve_fit_hits``).
+COUNTS = {"curve_fits": 0, "curve_fit_hits": 0}
 
 # Curve slot order, fixed: matches binding order wgpu_shader.wgsl:12-15.
 BRIGHTNESS, HUE, SATURATION, LIGHTNESS = 0, 1, 2, 3
@@ -60,6 +61,12 @@ class CurveState:
     control_x: Optional[np.ndarray] = None
     control_y: Optional[np.ndarray] = None
     raw_lut: Optional[np.ndarray] = None  # set only when user supplies a LUT
+    # The last fit of the control points, (key, breaks, coeffs), read-only:
+    # ``packed`` fits again only when the key (slot, segment count, the
+    # points' bytes) differs, so an edit that moves no curve fits none.
+    # Checked by value, so points changed in place are never served stale.
+    _fit: Optional[tuple] = dataclasses.field(
+        default=None, init=False, compare=False, repr=False)
 
     def lut(self, slot: int) -> np.ndarray:
         if self.raw_lut is not None:
@@ -74,13 +81,25 @@ class CurveState:
 
     def packed(self, slot: int, max_ctrl: int = MAX_CTRL) -> tuple[np.ndarray, np.ndarray]:
         if self.raw_lut is not None:
+            # Not kept: a raw LUT renders on the exact-LUT path, whose
+            # 65536-entry ``lut`` each pack outweighs this fit.
+            COUNTS["curve_fits"] += 1
             return curve_mod.lut_to_coeffs(self.raw_lut, max_ctrl=max_ctrl)
         cx, cy = (
-            (self.control_x, self.control_y)
+            (np.asarray(self.control_x), np.asarray(self.control_y))
             if self.control_x is not None
             else _default_points(slot)
         )
-        return curve_mod.pchip_coeffs(cx, cy, max_ctrl=max_ctrl)
+        key = (slot, max_ctrl, cx.dtype.str, cx.tobytes(),
+               cy.dtype.str, cy.tobytes())
+        if self._fit is not None and self._fit[0] == key:
+            COUNTS["curve_fit_hits"] += 1
+            return self._fit[1], self._fit[2]
+        COUNTS["curve_fits"] += 1
+        breaks, coeffs = curve_mod.pchip_coeffs(cx, cy, max_ctrl=max_ctrl)
+        breaks.flags.writeable = coeffs.flags.writeable = False
+        self._fit = (key, breaks, coeffs)
+        return breaks, coeffs
 
     def num_points(self, slot: int) -> int:
         if self.raw_lut is not None:
@@ -366,7 +385,9 @@ def pack_params(
     are bucket-padded. ``build_luts=False`` packs placeholder [M, 4, 1]
     LUTs: the develop kernel evaluates curves from the packed coefficients
     and never reads ``luts`` (the exact-LUT anchor path requires
-    build_luts=True). Packing is numpy; one upload per call.
+    build_luts=True). Packing is numpy; one upload per call. A curve is
+    fitted only when its points or the padded segment count changed since
+    its last pack (``CurveState.packed``).
     """
     dev = resolve_device(device)
     if not param_list:
@@ -401,7 +422,6 @@ def pack_params(
             if build_luts:
                 luts[i, slot] = p.curves[slot].lut(slot)
             b, c = p.curves[slot].packed(slot, max_ctrl=s)
-            COUNTS["curve_fits"] += 1
             breaks[i, slot] = b
             coeffs[i, slot] = c
     main = param_list[0]

@@ -100,6 +100,88 @@ def test_pack_params_bit_identical(case, build_luts):
     assert tparams.default_curve_slots(tl) == jparams.default_curve_slots(jl)
 
 
+def _edit_step(rng, params):
+    """One random edit of ``params`` in place: a tone or white-balance
+    slider, a curve point moved along x, y or both (through ``set_curve``
+    or in place), a
+    point added or taken away (the padded segment count moves with the
+    largest), or a mask added in place of the last regional one."""
+    kind = rng.choice(["tone", "wb", "move", "move_in_place", "count", "mask"])
+    e = params[int(rng.integers(len(params)))]
+    slot = int(rng.integers(4))
+    st = e.curves[slot]
+    cx = (st.control_x if st.control_x is not None
+          else tparams._default_points(slot)[0]).copy()
+    cy = (st.control_y if st.control_y is not None
+          else tparams._default_points(slot)[1]).copy()
+    if kind == "tone":
+        e.set_tone(exposure=rng.uniform(-2, 2), contrast=int(rng.integers(-60, 61)))
+    elif kind == "wb":
+        e.set_whitebalance(int(rng.integers(-80, 81)), int(rng.integers(-80, 81)))
+    elif kind in ("move", "move_in_place") and len(cx) > 2:
+        k = int(rng.integers(1, len(cx) - 1))
+        axes = rng.choice(["x", "y", "xy"])
+        if "x" in axes and cx[k + 1] - cx[k - 1] > 2:
+            cx[k] = rng.integers(cx[k - 1] + 1, cx[k + 1])
+        if "y" in axes:
+            cy[k] = rng.integers(0, 65536)
+        if kind == "move":
+            e.set_curve(slot, cx, cy)
+        else:
+            st.control_x[:], st.control_y[:] = cx, cy
+    elif kind == "count":
+        gaps = np.flatnonzero(np.diff(cx) > 2)
+        if len(cx) < 12 and len(gaps) and rng.random() < 0.6:
+            g = int(rng.choice(gaps))
+            x = int(rng.integers(cx[g] + 1, cx[g + 1]))
+            e.set_curve(slot, np.insert(cx, g + 1, x),
+                        np.insert(cy, g + 1, int(rng.integers(0, 65536))))
+        elif len(cx) > 2:
+            k = int(rng.integers(1, len(cx) - 1))
+            e.set_curve(slot, np.delete(cx, k), np.delete(cy, k))
+    elif kind == "mask":
+        m = tparams.EditParameters()
+        m.set_curve(tparams.SATURATION, [0, 20000, 45000, 65535],
+                    [30000, int(rng.integers(20000, 45000)), 33000, 30000])
+        if len(params) < 6:
+            params.append(m)
+        else:
+            params[-1] = m
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_pack_params_with_a_warm_fit_memo_is_bit_identical(seed):
+    import copy
+
+    rng = np.random.default_rng(seed)
+    params = [tparams.EditParameters() for _ in range(4)]
+    for e, (cx, cy) in zip(params, CURVES[2:6]):
+        e.set_curve(tparams.BRIGHTNESS, cx, cy)
+        e.set_curve(tparams.LIGHTNESS, [0, 40000, 65535], [36000, 30000, 36000])
+    tparams.pack_params(params, build_luts=False, device="cpu")
+    fits = hits = 0
+    for _ in range(60):
+        _edit_step(rng, params)
+        before = dict(tparams.COUNTS)
+        warm = tparams.pack_params(params, build_luts=False, device="cpu")
+        fits += tparams.COUNTS["curve_fits"] - before["curve_fits"]
+        hits += tparams.COUNTS["curve_fit_hits"] - before["curve_fit_hits"]
+        fresh = copy.deepcopy(params)
+        for e in fresh:
+            for c in e.curves:
+                c._fit = None
+        cold = tparams.pack_params(fresh, build_luts=False, device="cpu")
+        for name in tparams._FIELDS:
+            assert torch.equal(getattr(warm, name), getattr(cold, name)), name
+    # Most warm packs refit one curve or none; a mask added or a segment
+    # count changed refits them all.
+    assert 0 < fits < hits
+    # ... and the end state packs as the JAX package packs it.
+    j = jparams.pack_params(_to_jax(params), build_luts=False)
+    assert np.array_equal(warm.coeffs.numpy(), np.asarray(j.coeffs))
+    assert np.array_equal(warm.breaks.numpy(), np.asarray(j.breaks))
+
+
 @pytest.mark.parametrize("case", range(4))
 def test_develop_params_from_numpy_matches_pack(case):
     jl = _to_jax(_edit_sets()[case])

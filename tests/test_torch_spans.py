@@ -4,8 +4,9 @@ span with nothing listening is the shared null context; a span log records
 nesting, closes a raising span and keeps each thread's parents apart;
 under ``torch.profiler`` a span is an event of the trace that is no user
 annotation (the profiler projects user annotations onto the card's
-timeline as device ranges); the editor counts the curve fits and geometry
-passes it redoes; a DNG open records each of its three stages once."""
+timeline as device ranges); the editor fits again only the curves an edit
+moved, and counts the geometry passes it redoes; a DNG open records each
+of its three stages once."""
 
 import numpy as np
 import pytest
@@ -104,20 +105,82 @@ def _session(n_masks: int, hw=(40, 56)):
         logits[:, i * 8:(i + 1) * 8 + 4] = 1.0
         ed.add_mask(f"m{i}", logits)
         ed.set_curve(0, [0, 30000, 65535], [0, 36000, 65535], mask_name=f"m{i}")
+    # Three points on the main mask too: every session pads to 4 segments,
+    # so a three-point curve edit changes no other curve's fit.
+    ed.set_curve(0, [0, 34000, 65535], [0, 30000, 65535])
     ed.apply(teditor.FULL)
     return ed
 
 
-@pytest.mark.parametrize("n_masks,fits", [(3, 16), (0, 4)])
-def test_a_curve_edit_refits_every_curve_of_every_mask(n_masks, fits):
+def _pack_counts():
+    before = dict(tparams.COUNTS)
+    return lambda: {k: tparams.COUNTS[k] - before[k] for k in before}
+
+
+_EDITS = {
+    "curve": lambda ed: ed.set_curve(1, [0, 20000, 65535], [0, 21000, 65535]),
+    "tone": lambda ed: ed.set_tone(exposure=0.4, contrast=12),
+    "vignette": lambda ed: ed.set_vignette(35),
+    "none": lambda ed: None,
+}
+
+
+@pytest.mark.parametrize("edit", sorted(_EDITS))
+@pytest.mark.parametrize("n_masks", [3, 0])
+def test_an_edit_refits_only_the_curve_it_moved(n_masks, edit):
     ed = _session(n_masks)
-    before = tparams.COUNTS["curve_fits"]
-    ed.set_curve(1, [0, 20000, 65535], [0, 21000, 65535])
+    m = n_masks + 1
+    done = _pack_counts()
+    _EDITS[edit](ed)
     ed.apply(teditor.FULL)
-    assert tparams.COUNTS["curve_fits"] - before == fits
+    fits = {"curve": 1, "tone": 0, "vignette": 0, "none": 0}[edit]
+    hits = 0 if edit == "none" else 4 * m - fits  # no edit: no pack at all
+    assert done() == {"curve_fits": fits, "curve_fit_hits": hits}
     # A render with no edit between reuses the packed curves.
     ed.apply_padded(teditor.FULL)
-    assert tparams.COUNTS["curve_fits"] - before == fits
+    assert done() == {"curve_fits": fits, "curve_fit_hits": hits}
+
+
+def test_a_mask_with_more_points_refits_every_curve():
+    ed = _session(3)
+    done = _pack_counts()
+    hw = ed.shape
+    ed.add_mask("wide", np.ones(hw, np.float32))
+    # Five points pad the segments from 4 to 8: every curve's fit changes.
+    ed.set_curve(2, [0, 9000, 30000, 50000, 65535],
+                 [30000, 31000, 34000, 33000, 30000], mask_name="wide")
+    ed.apply(teditor.FULL)
+    assert done() == {"curve_fits": 4 * 5, "curve_fit_hits": 0}
+    ed.set_tone(exposure=-0.3, mask_name="wide")
+    ed.apply(teditor.FULL)
+    assert done() == {"curve_fits": 4 * 5, "curve_fit_hits": 4 * 5}
+
+
+def test_points_changed_in_place_are_refitted_not_served_stale():
+    params = [tparams.EditParameters() for _ in range(2)]
+    params[1].set_curve(0, [0, 30000, 65535], [0, 36000, 65535])
+    before = tparams.pack_params(params, build_luts=False, device="cpu")
+    params[1].curves[0].control_y[1] -= 9000
+    done = _pack_counts()
+    warm = tparams.pack_params(params, build_luts=False, device="cpu")
+    assert done() == {"curve_fits": 1, "curve_fit_hits": 7}
+    fresh = [tparams.EditParameters.from_json(p.to_json()) for p in params]
+    cold = tparams.pack_params(fresh, build_luts=False, device="cpu")
+    assert torch.equal(warm.breaks, cold.breaks)
+    assert torch.equal(warm.coeffs, cold.coeffs)
+    assert not torch.equal(warm.coeffs, before.coeffs)
+
+
+def test_a_raw_lut_curve_is_fitted_every_pack():
+    p = tparams.EditParameters()
+    p.set_curve(tparams.HUE, raw_lut=np.arange(65536, dtype=np.int32) // 2)
+    packs = [tparams.pack_params([p], build_luts=False, device="cpu")
+             for _ in range(2)]
+    done = _pack_counts()
+    tparams.pack_params([p], build_luts=False, device="cpu")
+    tparams.pack_params([p], build_luts=False, device="cpu")
+    assert done() == {"curve_fits": 2, "curve_fit_hits": 6}
+    assert torch.equal(packs[0].coeffs, packs[1].coeffs)
 
 
 def test_geometry_reruns_the_warp_and_the_unsharp_on_either_slider():

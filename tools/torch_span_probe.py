@@ -7,14 +7,14 @@ from the root of a checkout, on a machine with a card. It is a traced run
 of ``perfbench/run.py`` (the same set-up, window and check), with three
 readings added from outside the harness: a span log around
 ``PhotoEditor.open`` (the ``open.*`` spans), the work counters
-(``core/params.COUNTS``, ``engine/editor.COUNTS``, the geometry kernel's
-``KERNEL_LAUNCHES``) read when the window's
-profiler starts and stops, and the program's ``editor.*`` / ``develop.*``
-spans taken from that profiler's trace, whose device idle gaps it names
-again by the innermost span at their middle, the program's included. It
-also times a span with nothing listening and under the profiler on this
-host. Prints one JSON line: ``result`` (the benchmark's line) and
-``probe``.
+(``core/params.COUNTS``: curve fits and reuses of a kept fit;
+``engine/editor.COUNTS``, the geometry kernel's ``KERNEL_LAUNCHES``) read
+when the window's profiler starts and stops, and the program's
+``editor.*`` / ``develop.*`` spans taken from that profiler's trace, whose
+device idle gaps it names again by the innermost span at their middle, the
+program's included. It also times a span with nothing listening and under
+the profiler on this host. Prints one JSON line: ``result`` (the
+benchmark's line) and ``probe``.
 """
 
 from __future__ import annotations
@@ -132,6 +132,7 @@ def probe(workload: str, seed: int, seconds: float, device, **run_kwargs) -> dic
                    for n in TICK_SPANS}
     c0, c1 = seen["counts"]
     done = {k: c1[k] - c0[k] for k in c0}
+    hits = done.get("curve_fit_hits")  # None where no curve keeps its fit
     open_ms = {}
     for n, _parent, a, b in seen["open"]:
         open_ms[n] = open_ms.get(n, 0.0) + (b - a) * 1e-6
@@ -142,6 +143,10 @@ def probe(workload: str, seed: int, seconds: float, device, **run_kwargs) -> dic
         "spans_per_tick": {n: sum(m == n for m, _, _ in spans) / ticks
                            for n in TICK_SPANS},
         "curve_fits_per_tick": done["curve_fits"] / ticks,
+        "curve_fit_hits_per_tick": None if hits is None else hits / ticks,
+        "curve_fit_hit_share": (hits / (hits + done["curve_fits"])
+                                if hits is not None and hits + done["curve_fits"]
+                                else None),
         "geometry_passes_per_tick": (done["warps"] + done["unsharps"]) / ticks,
         "geometry_launches_per_tick": (done["geometry_sharpen_kernel"] / ticks
                                        if "geometry_sharpen_kernel" in done else None),
