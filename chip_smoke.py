@@ -18,7 +18,8 @@ Phases (any failure raises, and the script exits non-zero):
     curve rows of S = 1, 2, 4, 8 and 16 segments at 48x160 and 37x150, and
     every variant at 48x160, 37x150, 4096x6013 (a width that is not a
     multiple of 4) and 4096x6016; the shortcut variants' bit-identity and
-    identity_oklch's 3e-3 bound;
+    identity_oklch's 3e-3 bound (each shortcut against the same params with
+    their slot table cleared, the general kernel);
  3. the interactive develop frame at full size: a seeded 4000x6000 linear
     image in a PhotoEditor on the card with the benchmark edit, geometry,
     sharpening and three regional masks (M=4): FULL/MID/LOW renders,
@@ -317,12 +318,13 @@ def region_logits(h, w):
 # -- variants of the kernel call ---------------------------------------------
 
 def variants(h, w, dev, rng):
-    """(name, planes, params, masks, flags, bit-identical partner flags or
-    None) for the kernel-vs-twin phase at one shape."""
+    """(name, params, masks, flags, bit-identical partner: None, "general"
+    (the params with no shortcut) or "explicit_ones") for the kernel-vs-twin
+    phase at one shape, with the planes and an f32 all-ones mask row."""
     import torch
 
     from rawphotoforge_tpu_torch.core.params import (
-        BRIGHTNESS, EditParameters, default_curve_slots, pack_params)
+        BRIGHTNESS, EditParameters, pack_params)
 
     planes = torch.from_numpy(
         (rng.random((3, h, w), dtype=np.float32) ** 2) * 1.2).to(dev)
@@ -347,19 +349,13 @@ def variants(h, w, dev, rng):
     p_tone = pack_params([tone_only], device=dev)
     p_drag = pack_params([drag], device=dev)
     p_m4 = pack_params(stack, device=dev)
-    main = dict(main_mask_all_ones=True)
     return planes, [
-        ("general", p_full, None, main, None),
-        ("default_bright_curves", p_tone, None,
-         dict(main, default_bright_curves=True), main),
-        ("default_oklch_curves", p_drag, None,
-         dict(main, default_oklch_curves=True), main),
-        ("identity_oklch", p_tone, None,
-         dict(main, default_bright_curves=True, default_oklch_curves=True,
-              identity_oklch=True), None),
-        ("main_mask_all_ones", p_full, None, main, "explicit_ones"),
-        ("m4_u8_slots", p_m4, masks,
-         dict(main, default_curve_slots=default_curve_slots(stack)), main),
+        ("general", p_full, None, {}, None),
+        ("default_curves", p_tone, None, {}, "general"),
+        ("oklch_default", p_drag, None, {}, "general"),
+        ("identity_oklch", p_tone, None, dict(identity_oklch=True), None),
+        ("main_only", p_full, None, {}, "explicit_ones"),
+        ("m4_u8_slots", p_m4, masks, {}, "general"),
     ], ones_f32
 
 
@@ -451,6 +447,9 @@ def phase_kernel_vs_twin(dev, log):
 
     from rawphotoforge_tpu_torch.kernels import fused
 
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from torch_fixtures import no_shortcuts
+
     rng = np.random.default_rng(SEED)
     worst = {}
     # Every S a curve row can pack into, on two small shapes (the second
@@ -478,18 +477,18 @@ def phase_kernel_vs_twin(dev, log):
             worst[name] = max(worst.get(name, 0.0), err)
             note = ""
             if partner == "explicit_ones":
-                other = fused.develop_post_geo_fused(planes, params, ones_f32,
-                                                     main_mask_all_ones=False)
+                other = fused.develop_post_geo_fused(planes, params, ones_f32)
                 bit_identical(out, other, f"{name} {h}x{w} vs an f32 ones row")
                 note = "; bit-identical to an explicit f32 ones row"
-            elif partner is not None:
-                general = fused.develop_post_geo_fused(planes, params, masks, **partner)
+            elif partner == "general":
+                general = fused.develop_post_geo_fused(
+                    planes, no_shortcuts(params), masks)
                 bit_identical(out, general, f"{name} {h}x{w} vs general kernel")
                 note = "; bit-identical to the general kernel"
             if name == "identity_oklch":
-                general = fused.develop_post_geo_fused(
-                    planes, params, masks, main_mask_all_ones=True,
-                    default_bright_curves=True, default_oklch_curves=True)
+                check(fused.skips_oklch(params, True),
+                      "identity_oklch case does not skip the OKLCH pass")
+                general = fused.develop_post_geo_fused(planes, params, masks)
                 dev_max = (out - general).abs().max().item()
                 check(dev_max < 3e-3, f"identity_oklch {h}x{w}: {dev_max:.3e} "
                       "from the full path (bound 3e-3)")
@@ -729,11 +728,11 @@ def m4_masks(dev):
 
 def develop_cases(dev):
     """Phase 4's timed develop-kernel calls on the 24 MP bucket grid:
-    (planes, [(name, param list, masks, flags)])."""
+    (planes, [(name, param list, masks, flags)]); each param list's default
+    curves take their shortcuts (``DevelopParams.default_slots``)."""
     import torch
 
-    from rawphotoforge_tpu_torch.core.params import (
-        BRIGHTNESS, EditParameters, default_curve_slots)
+    from rawphotoforge_tpu_torch.core.params import BRIGHTNESS, EditParameters
 
     hb, wb = BUCKET_HW
     rng = np.random.default_rng(SEED + 2)
@@ -749,16 +748,11 @@ def develop_cases(dev):
     drag.set_vignette(40)
     drag.set_curve(BRIGHTNESS, [0, 16000, 40000, 65535], [1000, 20000, 46000, 65535])
     stack = [full, *regional_edits()]
-    one = dict(main_mask_all_ones=True)
     return planes, [
-        ("full_stack", [full], None, one),
-        ("slider_only", [tone], None, dict(one, default_bright_curves=True,
-                                           default_oklch_curves=True,
-                                           identity_oklch=True)),
-        ("tone_curve_drag", [drag], None, dict(one, default_oklch_curves=True,
-                                               identity_oklch=True)),
-        ("m4_regional", stack, m4_masks(dev),
-         dict(one, default_curve_slots=default_curve_slots(stack))),
+        ("full_stack", [full], None, {}),
+        ("slider_only", [tone], None, dict(identity_oklch=True)),
+        ("tone_curve_drag", [drag], None, dict(identity_oklch=True)),
+        ("m4_regional", stack, m4_masks(dev), {}),
     ]
 
 
@@ -780,16 +774,15 @@ def phase_timing(dev, ed, card, log):
             check(torch.equal(masks[1:], ed._masks_at(FULL)[1:]),
                   "phase 4's regional masks differ from the editor's")
             coverage = [1.0] + [float(masks[k].float().mean()) for k in range(1, m)]
-        slots = fused._slot_table(m, flags.get("default_bright_curves", False),
-                                  flags.get("default_oklch_curves", False),
-                                  flags.get("default_curve_slots"))
+        slots = params.default_slots
+        identity = fused.skips_oklch(params, flags.get("identity_oklch", False))
         ms = time_events(lambda: fused.develop_post_geo_fused(
             planes, params, masks, **flags), reps=20)
         plain = time_events(lambda: fused.develop_post_geo_fused_ref(
             planes, params, masks, **flags), reps=2, warm=1)
         main_only = masks is None
         nbytes = 24 * hw + (0 if main_only else m * hw) + 4 * (4 + 11 * m + 20 * m * s)
-        ops = op_count(m, s, slots, flags.get("identity_oklch", False),
+        ops = op_count(m, s, slots, identity,
                        coverage if m > 1 else [1.0], 1) * hw
         t_bytes = nbytes / PEAK_BYTES_S * 1e3
         t_ops = ops / PEAK_F32_S * 1e3
@@ -861,6 +854,9 @@ def phase_raw_kernel_vs_twin(dev, log):
     from rawphotoforge_tpu_torch.core.params import pack_params
     from rawphotoforge_tpu_torch.kernels import raw_pipeline as rp
 
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from torch_fixtures import no_shortcuts
+
     rng = np.random.default_rng(SEED + 3)
     tone, full, stack = raw_edits()
     cam = raw_cam()
@@ -886,13 +882,11 @@ def phase_raw_kernel_vs_twin(dev, log):
         p_full = pack_params([full], extent=(h, w), device=dev)
         p_tone = pack_params([tone], extent=(h, w), device=dev)
         p_m3 = pack_params(stack, extent=(h, w), device=dev)
-        shortcut = dict(default_bright_curves=True, default_oklch_curves=True)
         cases = [
             ("M1_sharpen0", p_full, None, 0.0, {}),
             ("M3_u8_sharpen0.8", p_m3, masks, 0.8, {}),
-            ("shortcuts", p_tone, None, 0.8, shortcut),
-            ("identity_oklch", p_tone, None, 0.8,
-             dict(shortcut, identity_oklch=True)),
+            ("shortcuts", p_tone, None, 0.8, {}),
+            ("identity_oklch", p_tone, None, 0.8, dict(identity_oklch=True)),
         ]
         notes = []
         for name, params, mk, amt, flags in cases:
@@ -906,10 +900,12 @@ def phase_raw_kernel_vs_twin(dev, log):
             worst[kind] = max(worst[kind], float((out - ref).abs().max().item()))
             bit_identical(out, ref, f"{what} kernel vs twin")
             if name == "shortcuts":
-                general = rp.raw_develop_fused(*args, pattern=pattern)
+                general = rp.raw_develop_fused(
+                    mosaic, wb, cam, no_shortcuts(params), np.float32(amt),
+                    pattern=pattern)
                 bit_identical(out, general, f"{what} shortcuts vs general kernel")
             if name == "identity_oklch":
-                general = rp.raw_develop_fused(*args, pattern=pattern, **shortcut)
+                general = rp.raw_develop_fused(*args, pattern=pattern)
                 dev_max = float((out - general).abs().max().item())
                 check(dev_max < 3e-3, f"{what}: {dev_max:.3e} from the full "
                       "path (bound 3e-3)")
@@ -1037,8 +1033,7 @@ def phase_raw_main_path(dev, log):
         composed = fused.develop_post_geo_fused(
             planes, pack_params([edit], extent=(h, w), build_luts=False,
                                 device=dev),
-            None, main_mask_all_ones=True, default_bright_curves=True,
-            default_oklch_curves=True, identity_oklch=True)
+            None, identity_oklch=True)
         trim = 14 if xt else 4
         err = compare(render[:, trim:-trim, trim:-trim],
                       composed[:, trim:-trim, trim:-trim], loose=1e-2,
@@ -1217,9 +1212,7 @@ RAW_FRAMES = (("RGGB", BAYER_HW), ("RGGB", NORTH_STAR_HW), ("XTRANS", XTRANS_HW)
 def raw_variants():
     """Phase 7's edits per frame: (name, edit, flags)."""
     tone, full, _ = raw_edits()
-    return (("batch_flags", tone, dict(default_bright_curves=True,
-                                       default_oklch_curves=True,
-                                       identity_oklch=True)),
+    return (("batch_flags", tone, dict(identity_oklch=True)),
             ("full_curves", full, {}))
 
 
@@ -1235,8 +1228,7 @@ def raw_args(dev, mosaic, edit):
 def phase_raw_timing(dev, card, in_dir, tmp, log):
     import torch
 
-    from rawphotoforge_tpu_torch.core.params import default_curve_slots
-    from rawphotoforge_tpu_torch.kernels import raw_pipeline as rp
+    from rawphotoforge_tpu_torch.kernels import fused, raw_pipeline as rp
 
     rng = np.random.default_rng(SEED + 5)
     results = {}
@@ -1250,11 +1242,11 @@ def phase_raw_timing(dev, card, in_dir, tmp, log):
                 *args, pattern=pattern, **flags), reps=20)
             plain = time_events(lambda: rp.raw_develop_fused_ref(
                 *args, pattern=pattern, **flags), reps=2, warm=1)
-            slots = default_curve_slots([edit]) if not flags else (
-                (True, True, True, True),)
             nbytes = 16 * hw + 4 * (21 + 11 + 20 * s)
             ops = (raw_op_count(pattern, True) + op_count(
-                1, s, slots, flags.get("identity_oklch", False), [1.0], 1)) * hw
+                1, s, args[3].default_slots,
+                fused.skips_oklch(args[3], flags.get("identity_oklch", False)),
+                [1.0], 1)) * hw
             t_bytes = nbytes / PEAK_BYTES_S * 1e3
             t_ops = ops / PEAK_F32_S * 1e3
             bound = max(t_bytes, t_ops)
@@ -1900,7 +1892,6 @@ def phase_vendor_main_path(dev, log):
     # batch's edit and flags (these launches are outside the counted run).
     flags = _parse_flags(RAW_FLAGS)
     edit = cli._params_from_args(flags)
-    db, doc = cli._curve_flags(edit)
     worst = {"bayer_kernel": 0.0, "xtrans_kernel": 0.0}
     for name, kind, route in VENDOR_FILES:
         if route not in worst:
@@ -1912,8 +1903,7 @@ def phase_vendor_main_path(dev, log):
         args = (mos01, raw.wb_gains, rawio.cam2srgb_for(raw),
                 pack_params([edit], extent=(h, w), build_luts=False, device=dev),
                 np.float32(edit.sharpness / 100.0 * 2.0))
-        kw = dict(pattern=raw.pattern, default_bright_curves=db,
-                  default_oklch_curves=doc, identity_oklch=doc)
+        kw = dict(pattern=raw.pattern, identity_oklch=True)
         out_k = rp.raw_develop_fused(*args, **kw)
         torch.cuda.synchronize()
         ref = rp.raw_develop_fused_ref(*args, **kw)
@@ -1939,8 +1929,7 @@ def phase_vendor_main_path(dev, log):
     werr = compare(warped.cpu(), warped_cpu, what="warp card vs CPU")
     h, w = wraw.mosaic.shape
     packed = pack_params([edit], extent=(h, w), build_luts=False, device=dev)
-    kw = dict(main_mask_all_ones=True, default_bright_curves=db,
-              default_oklch_curves=doc, identity_oklch=doc)
+    kw = dict(identity_oklch=True)
     out_k = fused.develop_post_geo_fused(warped, packed, None, **kw)
     torch.cuda.synchronize()
     bit_identical(out_k, fused.develop_post_geo_fused_ref(warped, packed, None, **kw),

@@ -320,31 +320,19 @@ def _batch_out_name(path, output_dir, taken) -> str:
     return os.path.join(output_dir, name)
 
 
-def _curve_flags(edit: EditParameters):
-    """(default_bright_curves, default_oklch_curves) of an edit: untouched
-    curve families take the kernels' staircase / identity_oklch variants
-    (the latter skips the OKLCH round trip, <= 3e-3 from the full path)."""
-    db = edit.curves[BRIGHTNESS].is_default(BRIGHTNESS)
-    doc = all(edit.curves[s].is_default(s)
-              for s in (HUE, SATURATION, LIGHTNESS))
-    return db, doc
-
-
 def edit_planes(planes, edit: EditParameters, extent):
     """Sharpen + the fused develop kernel on already-linear planes."""
     from ..kernels import fused
     from ..ops.sharpen import unsharp_mask
 
-    db, doc = _curve_flags(edit)
     packed = pack_params([edit], extent=extent, build_luts=False,
                          device=planes.device)
     if edit.sharpness:
         planes = unsharp_mask(planes, edit.sharpness / 100.0 * 2.0)
-    # masks=None: the all-ones main mask is never materialized.
-    return fused.develop_post_geo_fused(
-        planes, packed, None, main_mask_all_ones=True,
-        default_bright_curves=db, default_oklch_curves=doc,
-        identity_oklch=doc)
+    # masks=None: the all-ones main mask is never materialized. Untouched
+    # hue/sat/light curves skip the OKLCH round trip (<= 3e-3).
+    return fused.develop_post_geo_fused(planes, packed, None,
+                                        identity_oklch=True)
 
 
 def raw_fast_render(raw, edit: EditParameters, device):
@@ -363,7 +351,6 @@ def raw_fast_render(raw, edit: EditParameters, device):
     from ..ops.lenscorr import warp_fisheye, warp_rectilinear
 
     raw = with_effective_wb(raw)
-    db, doc = _curve_flags(edit)
     h, w = raw.mosaic.shape[:2]
     mos01 = normalized_mosaic(raw, raw.mosaic, device)
     cam = cam2srgb_for(raw)
@@ -376,8 +363,7 @@ def raw_fast_render(raw, edit: EditParameters, device):
         srgb = raw_develop_fused(
             mos01, raw.wb_gains, cam, packed,
             np.float32(edit.sharpness / 100.0 * 2.0), pattern=raw.pattern,
-            default_bright_curves=db, default_oklch_curves=doc,
-            identity_oklch=doc)
+            identity_oklch=True)
     else:
         if raw.pattern == "RGB":
             planes = dm.develop_linear_raw(mos01, raw.wb_gains, cam)

@@ -321,6 +321,10 @@ class DevelopParams:
       coeffs:   f32 [M, 4, S, 4]    packed curve monomial coefficients
       extent:   f32 [2]   true (height, width) when the image arrays are
                           bucket-padded; (0, 0) means "use the array shape".
+      default_slots: M host tuples of (bright, hue, sat, light) booleans,
+                          never uploaded: True where that mask's curve is
+                          the slot's default, so the develop kernels take
+                          its shortcut (bit-identical to evaluating it).
     """
 
     gains: torch.Tensor
@@ -332,15 +336,15 @@ class DevelopParams:
     breaks: torch.Tensor
     coeffs: torch.Tensor
     extent: torch.Tensor
+    default_slots: tuple
 
     @property
     def num_masks(self) -> int:
         return self.gains.shape[0]
 
     def to(self, device) -> "DevelopParams":
-        return DevelopParams(**{
-            f.name: getattr(self, f.name).to(device)
-            for f in dataclasses.fields(self)})
+        return dataclasses.replace(self, **{
+            name: getattr(self, name).to(device) for name in _FIELDS})
 
 
 _FIELDS = ("gains", "tone", "vignette", "distortion", "luts",
@@ -351,20 +355,28 @@ _INT_FIELDS = ("luts", "bright_channel")
 def develop_params_from_numpy(d: dict, device) -> DevelopParams:
     """The port's DevelopParams from the JAX package's DevelopParams fields
     given as numpy arrays (same names, same layout) — so both packages
-    compute on identical inputs."""
+    compute on identical inputs. ``d["default_slots"]``, when present, is
+    the shortcut table (``default_curve_slots``); without it no curve
+    takes a shortcut."""
     out = {}
     for name in _FIELDS:
         arr = np.asarray(d[name])
         dtype = np.int32 if name in _INT_FIELDS else np.float32
         out[name] = torch.from_numpy(np.array(arr, dtype=dtype))
+    m = out["gains"].shape[0]
+    slots = d.get("default_slots", ((False,) * 4,) * m)
+    if len(slots) != m or any(len(sl) != 4 for sl in slots):
+        raise ValueError(f"default_slots needs {m} (bright, hue, sat, light) "
+                         f"tuples, got {slots!r}")
+    out["default_slots"] = tuple(tuple(bool(b) for b in sl) for sl in slots)
     return DevelopParams(**out).to(resolve_device(device))
 
 
 def default_curve_slots(param_list) -> tuple:
     """Per-mask (bright, hue, sat, light) default-curve booleans — the slot
-    table for the develop kernel's per-mask staircase shortcuts: each
-    default slot skips its packed-PCHIP sweep for that mask only,
-    bit-identical to evaluating the default curve."""
+    table ``pack_params`` stores as ``DevelopParams.default_slots``: each
+    default slot skips its packed-PCHIP sweep for that mask only in the
+    develop kernels, bit-identical to evaluating the default curve."""
     return tuple(
         tuple(e.curves[slot].is_default(slot)
               for slot in (BRIGHTNESS, HUE, SATURATION, LIGHTNESS))
@@ -387,7 +399,8 @@ def pack_params(
     and never reads ``luts`` (the exact-LUT anchor path requires
     build_luts=True). Packing is numpy; one upload per call. A curve is
     fitted only when its points or the padded segment count changed since
-    its last pack (``CurveState.packed``).
+    its last pack (``CurveState.packed``). The curves' shortcut table,
+    ``default_slots``, is ``default_curve_slots(param_list)``.
     """
     dev = resolve_device(device)
     if not param_list:
@@ -432,5 +445,6 @@ def pack_params(
              luts=luts, bright_channel=bright_channel,
              breaks=breaks, coeffs=coeffs,
              extent=np.asarray(extent if extent is not None else (0.0, 0.0),
-                               dtype=np.float32)),
+                               dtype=np.float32),
+             default_slots=default_curve_slots(param_list)),
         dev)

@@ -47,7 +47,7 @@ import torch
 from .._device import resolve_device
 from .._errbase import PhotoEditorError
 from ..core.color import linear_to_srgb, srgb_to_linear
-from ..core.params import EditParameters, default_curve_slots, pack_params
+from ..core.params import EditParameters, pack_params
 from ..io import image_io
 from ..kernels import fused, geometry
 from ..ops import develop as dev
@@ -727,22 +727,11 @@ class PhotoEditor:
             masks = None if len(self.masks) == 1 else self._masks_at(level)
             if self._use_exact_path():
                 return dev.develop_post_geo(geo, params, masks)
-            # Untouched curves take the kernel's shortcuts, per curve family:
-            # default brightness curves skip the brightness sweeps; default
-            # hue/sat/light curves also skip the OKLCH round trip
-            # (identity_oklch, <= ~2e-3). Multi-mask sessions pass the
-            # per-mask slot table too (bit-identical to the general kernel).
-            slots = default_curve_slots([m.params for m in self.masks])
-            db = all(sl[0] for sl in slots)
-            doc = all(sl[1] and sl[2] and sl[3] for sl in slots)
-            return fused.develop_post_geo_fused(
-                geo, params, masks,
-                main_mask_all_ones=True,
-                default_bright_curves=db,
-                default_oklch_curves=doc,
-                identity_oklch=doc,
-                default_curve_slots=slots if len(self.masks) > 1 else None,
-            )
+            # Untouched curves take the kernel's shortcuts by the params'
+            # slot table; with every hue/sat/light curve untouched the
+            # OKLCH round trip is skipped too (<= ~2e-3).
+            return fused.develop_post_geo_fused(geo, params, masks,
+                                                identity_oklch=True)
 
     def histogram(self, level: str = MID) -> np.ndarray:
         """[4, 256] R/G/B/gray histogram of the current render at ``level``

@@ -27,8 +27,9 @@ truncating clamp after — and their rescale by 65535 or 32767.5 is a
 multiply with one residual correction, equal to the IEEE quotient on all
 65536 whole inputs. The sRGB OETF takes x^(1/2.4) as exp2(log2(x)/2.4)
 (``kernels/ktrig.srgb_oetf``); the OKLab cube root stays ``powf``. M,
-S, H, W and the per-mask default-slot bits are runtime values; templates
-cover only ``identity_oklch`` and the mask dtype (u8 or f32).
+S, H, W and the per-mask default-slot bits (``DevelopParams.default_slots``)
+are runtime values; templates cover only the OKLCH skip and the mask dtype
+(u8 or f32).
 
 ``develop_post_geo_fused`` takes the twin for a CPU tensor and the kernel
 for a CUDA tensor; there is no fallback from one to the other.
@@ -56,7 +57,7 @@ LAUNCHES = 0
 BUILD = None
 _LIB = None
 
-# Per-mask default-slot bits, in the order of default_curve_slots.
+# Per-mask default-slot bits, in the order of DevelopParams.default_slots.
 _SLOT_BITS = (1, 2, 4, 8)  # bright, hue, sat, light
 
 
@@ -175,17 +176,13 @@ def edit_stack(r, g, b, sel_for, gains, tone, chan, knots, coeffs,
     return _encode(r), _encode(g), _encode(b)
 
 
-def _validate(planes, params, masks, main_mask_all_ones, default_oklch_curves,
-              identity_oklch, default_curve_slots):
+def _validate(planes, params, masks):
     """The Pallas wrapper's argument checks (same ValueErrors). Returns
-    (m, main_only)."""
+    (m, main_only): ``masks=None`` states that the one mask is the all-ones
+    main mask, whose array is then never read."""
     if planes.ndim != 3 or planes.shape[0] != 3:
         raise ValueError(f"expected planes [3, H, W], got {tuple(planes.shape)}")
     if masks is None:
-        if not main_mask_all_ones:
-            raise ValueError(
-                "masks=None requires main_mask_all_ones=True (the all-ones "
-                "main mask is what justifies eliding the mask array)")
         m = params.gains.shape[0]
         if m != 1:
             raise ValueError(f"masks=None requires a single mask, got {m}")
@@ -199,22 +196,24 @@ def _validate(planes, params, masks, main_mask_all_ones, default_oklch_curves,
         if tuple(masks.shape[1:]) != tuple(planes.shape[1:]):
             raise ValueError(f"masks shape {tuple(masks.shape)} does not "
                              f"match planes {tuple(planes.shape)}")
-    if identity_oklch and not default_oklch_curves:
-        # Skipping the OKLCH pass with real curves would drop the edit.
-        raise ValueError("identity_oklch requires default_oklch_curves=True")
-    if default_curve_slots is not None:
-        if len(default_curve_slots) != m or any(
-                len(sl) != 4 for sl in default_curve_slots):
-            raise ValueError(
-                f"default_curve_slots needs {m} (bright, hue, sat, light) "
-                f"tuples, got {default_curve_slots!r}")
-    return m, main_mask_all_ones and m == 1
+    return m, masks is None
+
+
+def skips_oklch(params: DevelopParams, identity_oklch: bool) -> bool:
+    """Whether a launch skips the OKLCH round trip: the caller permits it
+    (``identity_oklch``) and every mask's hue, saturation and lightness
+    curves are the defaults by ``params.default_slots``. Skipping them
+    with a real curve would drop the edit."""
+    return bool(identity_oklch) and all(
+        sl[1] and sl[2] and sl[3] for sl in params.default_slots)
 
 
 def _slot_table(m, default_bright_curves, default_oklch_curves,
                 default_curve_slots):
-    """Per-mask (bright, hue, sat, light) shortcut booleans: the global
-    flags are the all-mask shorthand of the per-mask slot table."""
+    """Per-mask (bright, hue, sat, light) shortcut booleans from all-mask
+    flags merged with a per-mask slot table (``None``: all False). The
+    kernels read ``DevelopParams.default_slots`` instead; the frozen op
+    counts (``perfbench/benchlib/opcount.py``) are tested through this."""
     out = []
     for k in range(m):
         sl = (default_curve_slots[k] if default_curve_slots is not None
@@ -230,25 +229,18 @@ def develop_post_geo_fused_ref(
     planes: torch.Tensor,
     params: DevelopParams,
     masks: torch.Tensor | None,
-    main_mask_all_ones: bool = False,
-    default_bright_curves: bool = False,
-    default_oklch_curves: bool = False,
     identity_oklch: bool = False,
     row_offset=None,
-    default_curve_slots: tuple | None = None,
 ) -> torch.Tensor:
     """The plain torch twin of the CUDA kernel: the same packed-PCHIP math
-    and flags on whole planes, on any device. The CPU path of
+    and shortcuts on whole planes, on any device. The CPU path of
     ``develop_post_geo_fused`` and the reference the kernel is held to."""
-    m, main_only = _validate(planes, params, masks, main_mask_all_ones,
-                             default_oklch_curves, identity_oklch,
-                             default_curve_slots)
+    m, main_only = _validate(planes, params, masks)
     _, h, w = planes.shape
     dev = planes.device
     s = params.breaks.shape[-1]
     knots, coeffs = pack_curve_tables(params, m, s)
-    slots = _slot_table(m, default_bright_curves, default_oklch_curves,
-                        default_curve_slots)
+    slots = params.default_slots
     off = torch.as_tensor(0.0 if row_offset is None else row_offset,
                           dtype=torch.float32, device=dev)
     ys = torch.arange(h, dtype=torch.int32, device=dev)[:, None].to(
@@ -267,7 +259,7 @@ def develop_post_geo_fused_ref(
     r, g, b = edit_stack(
         r, g, b, sel_for, params.gains, params.tone,
         params.bright_channel.to(torch.float32), knots, coeffs, m, s,
-        identity_oklch, lambda k, slot: slots[k][slot])
+        skips_oklch(params, identity_oklch), lambda k, slot: slots[k][slot])
     return torch.stack([r, g, b])
 
 
@@ -332,8 +324,7 @@ def pack_table(params: DevelopParams, m: int, s: int, slots, row_offset,
     ]).to(torch.float32).contiguous()
 
 
-def _launch(planes, params, masks, m, main_only, slots, identity_oklch,
-            row_offset):
+def _launch(planes, params, masks, m, main_only, identity_oklch, row_offset):
     global LAUNCHES
     dev = planes.device
     if planes.dtype != torch.float32:
@@ -343,7 +334,8 @@ def _launch(planes, params, masks, m, main_only, slots, identity_oklch,
     s = params.breaks.shape[-1]
     check_segments(s)
     with span("develop.table"):
-        table = pack_table(params, m, s, slots, row_offset, dev)
+        table = pack_table(params, m, s, params.default_slots, row_offset,
+                           dev)
     # The kernel stages the table with up to 3 floats of alignment padding.
     if (table.numel() + 3) * 4 > _MAX_SMEM_BYTES:
         raise ValueError(f"{m} masks with {s}-segment curves need "
@@ -370,7 +362,7 @@ def _launch(planes, params, masks, m, main_only, slots, identity_oklch,
         err = library().rpf_develop_launch(
             planes.data_ptr(), mask_ptr, mask_kind, table.data_ptr(),
             table.numel(), out.data_ptr(), m, s, h, w, int(main_only),
-            int(identity_oklch), 0, stream)
+            int(skips_oklch(params, identity_oklch)), 0, stream)
     if err != 0:
         raise RuntimeError(f"develop kernel launch failed: CUDA error {err}")
     LAUNCHES += 1
@@ -404,46 +396,32 @@ def develop_post_geo_fused(
     planes: torch.Tensor,
     params: DevelopParams,
     masks: torch.Tensor | None,
-    main_mask_all_ones: bool = False,
-    default_bright_curves: bool = False,
-    default_oklch_curves: bool = False,
     identity_oklch: bool = False,
     row_offset=None,
-    default_curve_slots: tuple | None = None,
 ) -> torch.Tensor:
     """Fused develop of post-geometry planes: f32 [3, H, W] linear image,
     masks [M, H, W] (u8, bool or f32; a mask applies where non-zero) ->
-    sRGB-encoded f32 [3, H, W] in [0, 1]. Flags as the JAX package's
-    ``develop_post_geo_fused``:
+    sRGB-encoded f32 [3, H, W] in [0, 1].
 
-    ``main_mask_all_ones``: caller-asserted invariant that mask row 0 is
-    all ones; with a single mask the mask array is not read (and may be
-    ``None``).
-    ``default_bright_curves`` / ``default_oklch_curves``: every mask's
-    brightness curve, respectively hue/sat/light curves, are the defaults;
-    their evaluations reduce to the floor staircase / a constant gain,
-    bit-identical to evaluating the default curves.
-    ``identity_oklch`` (requires ``default_oklch_curves``): also skip the
-    OKLCH round trip — NOT bit-identical, <= 3e-3 from the full path.
+    ``masks=None``: the one mask is the all-ones main mask, and no mask
+    array is read.
+    Each mask's default curves (``params.default_slots``, set by
+    ``pack_params``) take their shortcuts, the floor staircase or a
+    constant gain, bit-identical to evaluating the default curves.
+    ``identity_oklch``: permits skipping the OKLCH round trip when every
+    mask's hue/sat/light curves are the defaults — NOT bit-identical,
+    <= 3e-3 from the full path (``skips_oklch``).
     ``row_offset``: global row index of the first row (vignette coords).
-    ``default_curve_slots``: per-mask (bright, hue, sat, light) shortcut
-    booleans, bit-identical like the global flags.
 
     A CPU tensor runs the plain twin; a CUDA tensor launches the kernel
     (or raises). The kernel counts its launches in ``LAUNCHES``.
     """
-    m, main_only = _validate(planes, params, masks, main_mask_all_ones,
-                             default_oklch_curves, identity_oklch,
-                             default_curve_slots)
+    m, main_only = _validate(planes, params, masks)
     if planes.device.type == "cpu":
-        return develop_post_geo_fused_ref(
-            planes, params, masks, main_mask_all_ones, default_bright_curves,
-            default_oklch_curves, identity_oklch, row_offset,
-            default_curve_slots)
+        return develop_post_geo_fused_ref(planes, params, masks,
+                                          identity_oklch, row_offset)
     if planes.device.type != "cuda":
         raise ValueError(f"no develop kernel for device {planes.device}")
-    slots = _slot_table(m, default_bright_curves, default_oklch_curves,
-                        default_curve_slots)
     with span("develop.launch"):
-        return _launch(planes, params, masks, m, main_only, slots,
-                       identity_oklch, row_offset)
+        return _launch(planes, params, masks, m, main_only, identity_oklch,
+                       row_offset)

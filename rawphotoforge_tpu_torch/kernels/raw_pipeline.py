@@ -25,9 +25,8 @@ twin's order; 4 outputs a lane with float4 stores. X-Trans: a 48-column
 strip + 12 px, 24-row steps that keep the window, green-estimate and plane
 rows. There is no tile-multiple padding: the kernel reads mirror (Bayer)
 or periodic (X-Trans) indices where the Pallas wrapper padded, and its CFA
-phases are global, so outputs do not depend on any strip or step size. The
-``tile_h``/``tile_w`` arguments are validated as the JAX wrapper validates
-them, and do not change the result.
+phases are global, so outputs do not depend on any strip or step size:
+unlike the JAX wrapper, the port takes no tile sizes.
 
 ``raw_develop_fused`` takes the twin for a CPU tensor and the kernel for a
 CUDA tensor; there is no fallback from one to the other.
@@ -48,11 +47,7 @@ from ..ops.sharpen import _gauss_taps
 from . import fused
 
 HALO = 4          # 2 for the demosaic stencil + 2 for the sharpen radius
-TILE_H = 64       # the JAX wrapper's defaults (validated, not used)
-TILE_W = 1024
 XT_HALO = 12      # two 6x6 CFA periods: the residual demosaic's 9 px + 2
-XT_TILE_H = 96
-XT_TILE_W = 768
 
 # Triangle taps of the normalized convolutions (ops/demosaic._NC_KERNEL_1D).
 _NC_TAPS = (1.0, 2.0, 3.0, 4.0, 3.0, 2.0, 1.0)
@@ -66,36 +61,19 @@ BUILD = None
 _LIB = None
 
 
-def _validate(mosaic01, params, pattern, tile_h, tile_w, masks,
-              default_oklch_curves, identity_oklch):
+def _validate(mosaic01, params, pattern, masks):
     """The JAX wrapper's argument checks (raw_pipeline.py:384-412, same
-    ValueErrors), plus the shapes the kernel needs. Returns M."""
+    ValueErrors) but its tile checks, plus the shapes the kernel needs.
+    Returns M."""
     if mosaic01.ndim != 2:
         raise ValueError(f"expected a mosaic [H, W], got {tuple(mosaic01.shape)}")
     h, w = mosaic01.shape
     if pattern != "XTRANS" and pattern not in BAYER_PATTERNS:
         raise ValueError(f"unknown CFA pattern {pattern!r}")
-    if identity_oklch and not default_oklch_curves:
-        raise ValueError("identity_oklch requires default_oklch_curves=True")
-    xtrans = pattern == "XTRANS"
-    if xtrans and (tile_h, tile_w) == (TILE_H, TILE_W):
-        tile_h, tile_w = XT_TILE_H, XT_TILE_W
-    if not xtrans:
-        tile_w = min(tile_w, -(-max(w, 128) // 128) * 128)
-        tile_h = min(tile_h, max(2, h + (h % 2)))
-    if tile_w % 128 != 0:
-        raise ValueError(f"tile_w must be a multiple of 128, got {tile_w}")
-    if xtrans:
-        if tile_h % 6 != 0 or tile_w % 6 != 0:
-            raise ValueError(
-                f"X-Trans tiles must be multiples of 6, got "
-                f"{tile_h}x{tile_w} (tile_w needs lcm(128,6)=384)")
-        if h < XT_HALO or w < XT_HALO:
-            # The phase-preserving border copies 12 rows/cols of the image.
-            raise ValueError(f"an X-Trans mosaic needs at least "
-                             f"{XT_HALO}x{XT_HALO} sites, got {h}x{w}")
-    elif tile_h % 2 != 0:
-        raise ValueError(f"tile_h must be even, got {tile_h}")
+    if pattern == "XTRANS" and (h < XT_HALO or w < XT_HALO):
+        # The phase-preserving border copies 12 rows/cols of the image.
+        raise ValueError(f"an X-Trans mosaic needs at least "
+                         f"{XT_HALO}x{XT_HALO} sites, got {h}x{w}")
     m = params.gains.shape[0]
     if m > 1:
         if masks is None:
@@ -187,18 +165,13 @@ def raw_develop_fused_ref(
     params: DevelopParams,
     sharpen_amount,
     pattern: str = "RGGB",
-    tile_h: int = TILE_H,
-    tile_w: int = TILE_W,
     masks: torch.Tensor | None = None,
-    default_bright_curves: bool = False,
-    default_oklch_curves: bool = False,
     identity_oklch: bool = False,
 ) -> torch.Tensor:
     """The plain torch twin of the CUDA kernel, on any device: the same
     arithmetic in the same order on whole planes. The CPU path of
     ``raw_develop_fused`` and the reference the kernel is held to."""
-    m = _validate(mosaic01, params, pattern, tile_h, tile_w, masks,
-                  default_oklch_curves, identity_oklch)
+    m = _validate(mosaic01, params, pattern, masks)
     dev = mosaic01.device
     h, w = mosaic01.shape
     s = params.breaks.shape[-1]
@@ -246,12 +219,12 @@ def raw_develop_fused_ref(
         return None if k == 0 else masks[k] != 0
 
     knots, coeffs = fused.pack_curve_tables(params, m, s)
-    slots = fused._slot_table(m, default_bright_curves, default_oklch_curves,
-                              None)
+    slots = params.default_slots
     r, g, b = fused.edit_stack(
         r, g, b, sel_for, params.gains, params.tone,
         params.bright_channel.to(torch.float32), knots, coeffs, m, s,
-        identity_oklch, lambda k, slot: slots[k][slot])
+        fused.skips_oklch(params, identity_oklch),
+        lambda k, slot: slots[k][slot])
     return torch.stack([r, g, b])
 
 
@@ -302,7 +275,7 @@ def pack_table(params: DevelopParams, m: int, s: int, slots, sharpen_amount,
 
 
 def _launch(mosaic01, wb_gains, cam2srgb, params, sharpen_amount, pattern,
-            masks, m, slots, identity_oklch):
+            masks, m, identity_oklch):
     dev = mosaic01.device
     if mosaic01.dtype != torch.float32:
         raise ValueError(f"mosaic must be float32, got {mosaic01.dtype}")
@@ -310,8 +283,8 @@ def _launch(mosaic01, wb_gains, cam2srgb, params, sharpen_amount, pattern,
     h, w = mosaic01.shape
     s = params.breaks.shape[-1]
     fused.check_segments(s)
-    table = pack_table(params, m, s, slots, sharpen_amount, cam2srgb,
-                       wb_gains, dev)
+    table = pack_table(params, m, s, params.default_slots, sharpen_amount,
+                       cam2srgb, wb_gains, dev)
     if (table.numel() + 3) * 4 > fused._MAX_SMEM_BYTES // 2:
         raise ValueError(f"{m} masks with {s}-segment curves need "
                          f"{(table.numel() + 3) * 4} B of tables, over the half of "
@@ -335,7 +308,8 @@ def _launch(mosaic01, wb_gains, cam2srgb, params, sharpen_amount, pattern,
             mosaic01.data_ptr(),
             None if regional is None else regional.data_ptr(),
             table.data_ptr(), table.numel(), out.data_ptr(), m, s, h, w,
-            code, r_in_row0, int(identity_oklch), stream)
+            code, r_in_row0, int(fused.skips_oklch(params, identity_oklch)),
+            stream)
     if err != 0:
         raise RuntimeError(f"RAW develop kernel launch failed: CUDA error {err}")
     KERNEL_LAUNCHES["xtrans_kernel" if code < 0 else "bayer_kernel"] += 1
@@ -349,11 +323,7 @@ def raw_develop_fused(
     params: DevelopParams,
     sharpen_amount,
     pattern: str = "RGGB",
-    tile_h: int = TILE_H,
-    tile_w: int = TILE_W,
     masks: torch.Tensor | None = None,
-    default_bright_curves: bool = False,
-    default_oklch_curves: bool = False,
     identity_oklch: bool = False,
 ) -> torch.Tensor:
     """Whole-RAW-pipeline develop: normalized CFA ``mosaic01`` f32 [H, W]
@@ -361,22 +331,19 @@ def raw_develop_fused(
     (r, g, b), ``cam2srgb`` 3x3, ``sharpen_amount`` the unsharp amount
     (0 = none). With regional masks pass ``masks`` [M, H, W] (row 0, the
     main mask, is never read; a regional mask applies where non-zero).
-    Flags as the JAX package's ``raw_develop_fused``: the default-curve
-    shortcuts are bit-identical, ``identity_oklch`` (requires
-    ``default_oklch_curves``) is <= 3e-3 from the full path.
+    Default curves take the develop kernel's bit-identical shortcuts by
+    ``params.default_slots``; ``identity_oklch`` permits skipping the
+    OKLCH round trip as ``kernels/fused.develop_post_geo_fused`` does
+    (<= 3e-3 from the full path).
 
     A CPU tensor runs the plain twin; a CUDA tensor launches the kernel
     (or raises). Each kernel counts its launches in ``KERNEL_LAUNCHES``."""
-    m = _validate(mosaic01, params, pattern, tile_h, tile_w, masks,
-                  default_oklch_curves, identity_oklch)
+    m = _validate(mosaic01, params, pattern, masks)
     if mosaic01.device.type == "cpu":
         return raw_develop_fused_ref(
             mosaic01, wb_gains, cam2srgb, params, sharpen_amount, pattern,
-            tile_h, tile_w, masks, default_bright_curves,
-            default_oklch_curves, identity_oklch)
+            masks, identity_oklch)
     if mosaic01.device.type != "cuda":
         raise ValueError(f"no RAW develop kernel for device {mosaic01.device}")
-    slots = fused._slot_table(m, default_bright_curves, default_oklch_curves,
-                              None)
     return _launch(mosaic01, wb_gains, cam2srgb, params, sharpen_amount,
-                   pattern, masks, m, slots, identity_oklch)
+                   pattern, masks, m, identity_oklch)

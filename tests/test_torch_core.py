@@ -5,6 +5,7 @@ torch port (device="cpu"). Curves and packing are compared bit for bit;
 the float stages with the tolerance stated beside each check.
 """
 
+import dataclasses
 import json
 
 import numpy as np
@@ -173,6 +174,7 @@ def test_pack_params_with_a_warm_fit_memo_is_bit_identical(seed):
         cold = tparams.pack_params(fresh, build_luts=False, device="cpu")
         for name in tparams._FIELDS:
             assert torch.equal(getattr(warm, name), getattr(cold, name)), name
+        assert warm.default_slots == cold.default_slots
     # Most warm packs refit one curve or none; a mask added or a segment
     # count changed refits them all.
     assert 0 < fits < hits
@@ -191,6 +193,57 @@ def test_develop_params_from_numpy_matches_pack(case):
     for name in tparams._FIELDS:
         np.testing.assert_array_equal(getattr(t, name).numpy(), d[name])
     assert t.gains.dtype == torch.float32 and t.luts.dtype == torch.int32
+
+
+def _slot_sessions():
+    """Sessions of 1, 3 and 4 masks mixing default, edited (including an
+    edit back to the default points) and raw-LUT curves."""
+    sets = _edit_sets()
+    s = tparams.EditParameters()
+    s.set_curve(tparams.SATURATION, [0, 65535], [32767, 32767])  # the default
+    s.set_curve(tparams.BRIGHTNESS, raw_lut=jcurve.build_lut(*CURVES[2]))
+    return {"one_default": sets[0], "one_edited": sets[1],
+            "three": sets[3], "four": [*sets[3], s]}
+
+
+@pytest.mark.parametrize("session", sorted(_slot_sessions()))
+def test_pack_params_sets_default_slots(session):
+    """The packed params carry the curves' shortcut table: exactly
+    ``default_curve_slots`` of the edits, kept by ``to`` and by
+    ``dataclasses.replace`` of another field."""
+    plist = _slot_sessions()[session]
+    for build_luts in (True, False):
+        t = tparams.pack_params(plist, extent=(40, 64), build_luts=build_luts,
+                                device="cpu")
+        assert t.default_slots == tparams.default_curve_slots(plist)
+        assert len(t.default_slots) == t.num_masks == len(plist)
+        assert t.to("cpu").default_slots == t.default_slots
+        moved = dataclasses.replace(t, extent=torch.zeros(2))
+        assert moved.default_slots == t.default_slots
+    if session == "four":
+        assert t.default_slots[3] == (False, True, True, True)
+        assert t.default_slots[2][1] is False  # a raw LUT is never default
+
+
+@pytest.mark.parametrize("case", range(4))
+def test_develop_params_from_numpy_without_slots_takes_no_shortcut(case):
+    """Params built from the JAX package's fields (no ``default_slots``)
+    take no curve shortcut; a table of the wrong length is refused."""
+    plist = _edit_sets()[case]
+    j = jparams.pack_params(_to_jax(plist), extent=(12, 34))
+    d = {name: np.asarray(getattr(j, name)) for name in tparams._FIELDS}
+    t = tparams.develop_params_from_numpy(d, device="cpu")
+    assert t.default_slots == ((False,) * 4,) * len(plist)
+    slots = tparams.default_curve_slots(plist)
+    with_slots = tparams.develop_params_from_numpy(dict(d, default_slots=slots),
+                                                   device="cpu")
+    assert with_slots.default_slots == slots
+    with pytest.raises(ValueError, match="default_slots"):
+        tparams.develop_params_from_numpy(
+            dict(d, default_slots=((True,) * 4,) * (len(plist) + 1)), device="cpu")
+    with pytest.raises(ValueError, match="default_slots"):
+        tparams.develop_params_from_numpy(
+            dict(d, default_slots=((True,) * 3,) * len(plist)), device="cpu")
 
 
 @pytest.mark.parametrize("case", range(4))

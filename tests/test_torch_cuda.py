@@ -20,6 +20,7 @@ from rawphotoforge_tpu_torch.kernels import fused
 from chip_smoke import (BAYER_EDGE_HW, GEODESIC_HW, GEOMETRY_DISTORTIONS, GEOMETRY_HW,
                         GEOMETRY_SHARPNESS, GEOMETRY_TIME_EXTENT, GEOMETRY_TIME_HW,
                         geometry_planes, same_bits, twin_flood)
+from torch_fixtures import no_shortcuts
 
 pytestmark = pytest.mark.cuda
 
@@ -82,22 +83,27 @@ def test_shortcuts_bit_identical_on_the_card(dev):
     plist = _params()
     planes, masks = _inputs(dev, 64, 256, 3)
     params = pack_params(plist, device=dev)
-    general = fused.develop_post_geo_fused(planes, params, masks)
-    slots = fused.develop_post_geo_fused(planes, params, masks,
-                                         default_curve_slots=default_curve_slots(plist))
+    assert params.default_slots == default_curve_slots(plist)
+    general = fused.develop_post_geo_fused(planes, no_shortcuts(params), masks)
+    slots = fused.develop_post_geo_fused(planes, params, masks)
     assert torch.equal(general, slots)
     tone = EditParameters()
     tone.set_tone(exposure=0.8, contrast=20)
     one = pack_params([tone], device=dev)
-    base = fused.develop_post_geo_fused(planes, one, None, main_mask_all_ones=True)
-    fast = fused.develop_post_geo_fused(planes, one, None, main_mask_all_ones=True,
-                                        default_bright_curves=True,
-                                        default_oklch_curves=True)
+    base = fused.develop_post_geo_fused(planes, no_shortcuts(one), None)
+    fast = fused.develop_post_geo_fused(planes, one, None)
     assert torch.equal(base, fast)
-    ident = fused.develop_post_geo_fused(planes, one, None, main_mask_all_ones=True,
-                                         default_bright_curves=True,
-                                         default_oklch_curves=True, identity_oklch=True)
+    ident = fused.develop_post_geo_fused(planes, one, None, identity_oklch=True)
+    assert not torch.equal(ident, fast)
     assert (ident - fast).abs().max().item() < 3e-3
+    # A real hue curve: identity_oklch only permits, the full path runs.
+    hue = EditParameters()
+    hue.set_tone(exposure=0.8)
+    hue.set_curve(HUE, [0, 30000, 65535], [4000, 33000, 63000])
+    packed = pack_params([hue], device=dev)
+    assert torch.equal(
+        fused.develop_post_geo_fused(planes, packed, None, identity_oklch=True),
+        fused.develop_post_geo_fused(planes, packed, None))
 
 
 def test_cuda_tensors_never_reach_the_twin(dev, monkeypatch):
@@ -107,7 +113,7 @@ def test_cuda_tensors_never_reach_the_twin(dev, monkeypatch):
     monkeypatch.setattr(fused, "develop_post_geo_fused_ref", refuse)
     planes, _ = _inputs(dev, 16, 128, 1)
     params = pack_params([EditParameters()], device=dev)
-    fused.develop_post_geo_fused(planes, params, None, main_mask_all_ones=True)
+    fused.develop_post_geo_fused(planes, params, None)
     with pytest.raises(ValueError, match="masks must be"):
         fused.develop_post_geo_fused(planes, params,
                                      torch.ones((1, 16, 128), dtype=torch.int32, device=dev))

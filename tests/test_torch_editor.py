@@ -107,19 +107,23 @@ def test_slider_only_session_takes_identity_variant(rng, monkeypatch):
     seen = {}
     real = fused.develop_post_geo_fused
 
-    def spy(*a, **kw):
-        seen.update(kw)
-        return real(*a, **kw)
+    def spy(planes, params, masks, **kw):
+        seen.update(kw, params=params, masks=masks)
+        return real(planes, params, masks, **kw)
 
     monkeypatch.setattr(fused, "develop_post_geo_fused", spy)
     ed = PhotoEditor.from_rgb_f32(nongray_image(rng, 32, 48), device="cpu", **KW)
     ed.set_tone(exposure=0.5)
     ed.apply(FULL)
-    assert seen["identity_oklch"] and seen["default_bright_curves"]
-    assert seen["default_curve_slots"] is None
+    # The editor permits the OKLCH skip; the params' table grants it.
+    assert seen["identity_oklch"] and seen["masks"] is None
+    assert seen["params"].default_slots == ((True,) * 4,)
+    assert fused.skips_oklch(seen["params"], seen["identity_oklch"])
     ed.set_curve(LIGHTNESS, [0, 65535], [30000, 36000])
     ed.apply(FULL)
-    assert not seen["identity_oklch"] and not seen["default_oklch_curves"]
+    assert seen["identity_oklch"]
+    assert seen["params"].default_slots == ((True, True, True, False),)
+    assert not fused.skips_oklch(seen["params"], seen["identity_oklch"])
 
 
 def test_masks_lifecycle_invert_and_rethreshold(rng):

@@ -4,6 +4,8 @@ shortcut variants' bit-identity, the argument checks and the dispatch
 rule. The CUDA kernel itself is held to the twin in test_torch_cuda.py
 and chip_smoke.py (it has no CPU mode)."""
 
+import dataclasses
+
 import numpy as np
 import jax.numpy as jnp
 import pytest
@@ -17,10 +19,12 @@ from rawphotoforge_tpu_torch.core import color as tcolor
 from rawphotoforge_tpu_torch.core.params import (
     BRIGHTNESS, HUE, LIGHTNESS, SATURATION, EditParameters, default_curve_slots,
     pack_params)
+from rawphotoforge_tpu_torch.engine.editor import FULL, PhotoEditor
 from rawphotoforge_tpu_torch.kernels import fused
 from rawphotoforge_tpu_torch.ops import develop as tdev
 
 from test_develop import assert_close
+from torch_fixtures import no_shortcuts
 from torch_parity import assert_close_across, full_stack_edit, nongray_image
 
 
@@ -54,6 +58,7 @@ def _twin(img, plist, masks, **kw):
 
 def _hwc(x):
     return np.asarray(x).transpose(1, 2, 0)
+
 
 
 PALLAS_CASES = {
@@ -137,8 +142,8 @@ def test_twin_matches_port_anchor(rng):
     img = nongray_image(rng, 48, 160).transpose(2, 0, 1).copy()
     img[:, :4, :4] = 0.0  # exact gray is fine within one framework
     params = pack_params(plist, device="cpu")
-    ours = fused.develop_post_geo_fused(torch.from_numpy(img), params, None,
-                                        main_mask_all_ones=True).numpy()
+    ours = fused.develop_post_geo_fused(torch.from_numpy(img), params,
+                                        None).numpy()
     ref = tdev.develop_post_geo(torch.from_numpy(img), params, None).numpy()
     assert_close(_hwc(ours), _hwc(ref))
 
@@ -148,8 +153,9 @@ def _planes(rng):
 
 
 def test_default_curve_flags_bit_identical(rng):
-    """The default-curve shortcut flags are bit-identical to evaluating the
-    default curves (test_pallas.py:127-178), including each family alone."""
+    """The default-curve shortcuts the packed params carry are
+    bit-identical to evaluating the default curves (test_pallas.py:127-178),
+    for every curve default, on two masks, and for each family alone."""
     planes = _planes(rng)
     ones = torch.ones((1, 48, 160))
     p = EditParameters()
@@ -157,32 +163,32 @@ def test_default_curve_flags_bit_identical(rng):
     p.set_whitebalance(temperature=30)
     p.set_vignette(40)
     packed = pack_params([p], device="cpu")
-    general = fused.develop_post_geo_fused(planes, packed, ones)
-    fast = fused.develop_post_geo_fused(planes, packed, ones, default_bright_curves=True,
-                                        default_oklch_curves=True)
+    assert packed.default_slots == ((True,) * 4,)
+    general = fused.develop_post_geo_fused(planes, no_shortcuts(packed), ones)
+    fast = fused.develop_post_geo_fused(planes, packed, ones)
     assert torch.equal(general, fast)
     reg = EditParameters()
     reg.set_tone(exposure=-0.6)
     m2 = torch.ones((2, 48, 160))
     m2[1, :20] = 0.0
     packed2 = pack_params([p, reg], device="cpu")
+    assert packed2.default_slots == ((True,) * 4,) * 2
     assert torch.equal(
-        fused.develop_post_geo_fused(planes, packed2, m2),
-        fused.develop_post_geo_fused(planes, packed2, m2, default_bright_curves=True,
-                                     default_oklch_curves=True))
+        fused.develop_post_geo_fused(planes, no_shortcuts(packed2), m2),
+        fused.develop_post_geo_fused(planes, packed2, m2))
     pb = EditParameters()
     pb.set_tone(exposure=0.4)
     pb.set_curve(BRIGHTNESS, [0, 20000, 65535], [3000, 26000, 65535])
     packedb = pack_params([pb], device="cpu")
-    assert torch.equal(fused.develop_post_geo_fused(planes, packedb, ones),
-                       fused.develop_post_geo_fused(planes, packedb, ones,
-                                                    default_oklch_curves=True))
+    assert packedb.default_slots == ((False, True, True, True),)
+    assert torch.equal(fused.develop_post_geo_fused(planes, no_shortcuts(packedb), ones),
+                       fused.develop_post_geo_fused(planes, packedb, ones))
     ph = EditParameters()
     ph.set_curve(HUE, [0, 30000, 65535], [5000, 32000, 64000])
     packedh = pack_params([ph], device="cpu")
-    assert torch.equal(fused.develop_post_geo_fused(planes, packedh, ones),
-                       fused.develop_post_geo_fused(planes, packedh, ones,
-                                                    default_bright_curves=True))
+    assert packedh.default_slots == ((True, False, True, True),)
+    assert torch.equal(fused.develop_post_geo_fused(planes, no_shortcuts(packedh), ones),
+                       fused.develop_post_geo_fused(planes, packedh, ones))
 
 
 def test_default_curve_slots_bit_identical(rng):
@@ -207,9 +213,10 @@ def test_default_curve_slots_bit_identical(rng):
     masks[1] = (np.arange(w) % 2 == 0)[None, :]
     masks[2] = (np.arange(h) % 3 == 0)[:, None]
     packed = pack_params(params, device="cpu")
-    general = fused.develop_post_geo_fused(planes, packed, torch.from_numpy(masks))
-    elided = fused.develop_post_geo_fused(planes, packed, torch.from_numpy(masks),
-                                          default_curve_slots=slots)
+    assert packed.default_slots == slots
+    general = fused.develop_post_geo_fused(planes, no_shortcuts(packed),
+                                           torch.from_numpy(masks))
+    elided = fused.develop_post_geo_fused(planes, packed, torch.from_numpy(masks))
     assert torch.equal(general, elided)
     anchor = tdev.develop_post_geo(planes, pack_params(params, device="cpu"),
                                    torch.from_numpy(masks))
@@ -226,22 +233,50 @@ def test_identity_oklch_near_exact(rng):
     p.set_whitebalance(temperature=30)
     p.set_vignette(40)
     packed = pack_params([p], device="cpu")
-    full = fused.develop_post_geo_fused(planes, packed, ones, default_bright_curves=True,
-                                        default_oklch_curves=True)
-    fast = fused.develop_post_geo_fused(planes, packed, ones, default_bright_curves=True,
-                                        default_oklch_curves=True, identity_oklch=True)
+    full = fused.develop_post_geo_fused(planes, packed, ones)
+    fast = fused.develop_post_geo_fused(planes, packed, ones, identity_oklch=True)
+    assert fused.skips_oklch(packed, True)
+    assert not torch.equal(full, fast)  # the round trip was skipped
     assert (full - fast).abs().max() < 3e-3
     p.set_curve(BRIGHTNESS, [0, 20000, 65535], [3000, 26000, 65535])
     packedb = pack_params([p], device="cpu")
-    full = fused.develop_post_geo_fused(planes, packedb, ones)
-    fast = fused.develop_post_geo_fused(planes, packedb, ones, default_oklch_curves=True,
-                                        identity_oklch=True)
+    full = fused.develop_post_geo_fused(planes, no_shortcuts(packedb), ones)
+    fast = fused.develop_post_geo_fused(planes, packedb, ones, identity_oklch=True)
+    assert fused.skips_oklch(packedb, True)
+    assert not torch.equal(full, fast)
     assert (full - fast).abs().max() < 3e-3
 
 
+@pytest.mark.parametrize("slot", [HUE, SATURATION, LIGHTNESS])
+def test_identity_oklch_only_permits(rng, slot):
+    """identity_oklch=True with a real hue, saturation or lightness curve
+    (on the main mask or a regional one) runs the full OKLCH path: the same
+    bits as identity_oklch=False."""
+    planes = _planes(rng)
+    pts = [0, 30000, 65535]
+    vals = [4000, 33000, 63000] if slot == HUE else [30000, 36000, 33000]
+    p = EditParameters()
+    p.set_tone(exposure=0.5)
+    p.set_curve(slot, pts, vals)
+    packed = pack_params([p], device="cpu")
+    assert not fused.skips_oklch(packed, True)
+    assert torch.equal(
+        fused.develop_post_geo_fused(planes, packed, None, identity_oklch=True),
+        fused.develop_post_geo_fused(planes, packed, None))
+    reg = EditParameters()
+    reg.set_curve(slot, pts, vals)
+    two = pack_params([EditParameters(), reg], device="cpu")
+    masks = torch.ones((2, 48, 160))
+    masks[1, :, ::2] = 0.0
+    assert not fused.skips_oklch(two, True)
+    assert torch.equal(
+        fused.develop_post_geo_fused(planes, two, masks, identity_oklch=True),
+        fused.develop_post_geo_fused(planes, two, masks))
+
+
 def test_mask_dtypes_and_main_only_agree(rng):
-    """u8, bool and f32 masks select the same pixels; masks=None with
-    main_mask_all_ones equals an explicit all-ones row."""
+    """u8, bool and f32 masks select the same pixels; masks=None (the
+    all-ones main mask, never read) equals an explicit all-ones row."""
     plist = [full_stack_edit(), *_multi()]
     img, masks = _inputs(rng, plist, 48, 160)
     planes = torch.from_numpy(img)
@@ -251,8 +286,7 @@ def test_mask_dtypes_and_main_only_agree(rng):
         assert torch.equal(f32, fused.develop_post_geo_fused(planes, params, torch.from_numpy(m)))
     one = pack_params(plist[:1], device="cpu")
     explicit = fused.develop_post_geo_fused(planes, one, torch.ones((1, 48, 160)))
-    assert torch.equal(explicit, fused.develop_post_geo_fused(planes, one, None,
-                                                              main_mask_all_ones=True))
+    assert torch.equal(explicit, fused.develop_post_geo_fused(planes, one, None))
 
 
 def test_row_offset_continues_vignette(rng):
@@ -262,10 +296,10 @@ def test_row_offset_continues_vignette(rng):
     img = nongray_image(rng, 64, 128).transpose(2, 0, 1).copy()
     whole = fused.develop_post_geo_fused(
         torch.from_numpy(img), pack_params([p], extent=(64, 128), device="cpu"),
-        None, main_mask_all_ones=True)
+        None)
     part = fused.develop_post_geo_fused(
         torch.from_numpy(img[:, 24:]), pack_params([p], extent=(64, 128), device="cpu"),
-        None, main_mask_all_ones=True, row_offset=24.0)
+        None, row_offset=24.0)
     assert torch.equal(whole[:, 24:], part)
 
 
@@ -275,33 +309,23 @@ def test_argument_checks_raise_like_pallas():
     for rows in (1, 3):
         with pytest.raises(ValueError, match="packed mask count"):
             fused.develop_post_geo_fused(planes, two, torch.ones((rows, 16, 128)))
-    one = pack_params([EditParameters()], device="cpu")
-    with pytest.raises(ValueError, match="default_oklch_curves"):
-        fused.develop_post_geo_fused(planes, one, None, main_mask_all_ones=True,
-                                     identity_oklch=True)
-    with pytest.raises(ValueError, match="default_oklch_curves"):
-        fused.develop_post_geo_fused(planes, one, None, main_mask_all_ones=True,
-                                     default_bright_curves=True, identity_oklch=True)
-    with pytest.raises(ValueError, match="default_curve_slots"):
-        fused.develop_post_geo_fused(planes, two, torch.ones((2, 16, 128)),
-                                     default_curve_slots=((True,) * 4,))
-    with pytest.raises(ValueError, match="main_mask_all_ones"):
-        fused.develop_post_geo_fused(planes, one, None)
+    with pytest.raises(ValueError, match="masks shape"):
+        fused.develop_post_geo_fused(planes, two, torch.ones((2, 16, 64)))
+    with pytest.raises(ValueError, match="expected planes"):
+        fused.develop_post_geo_fused(planes[:2], two, torch.ones((2, 16, 128)))
     with pytest.raises(ValueError, match="single mask"):
-        fused.develop_post_geo_fused(planes, two, None, main_mask_all_ones=True)
+        fused.develop_post_geo_fused(planes, two, None)
 
 
 def test_dispatch_cpu_runs_twin_and_other_devices_raise():
     planes = torch.zeros((3, 16, 128))
     params = pack_params([EditParameters()], device="cpu")
     before = fused.LAUNCHES
-    out = fused.develop_post_geo_fused(planes, params, None, main_mask_all_ones=True)
+    out = fused.develop_post_geo_fused(planes, params, None)
     assert fused.LAUNCHES == before  # the twin never counts as a launch
-    assert torch.equal(out, fused.develop_post_geo_fused_ref(
-        planes, params, None, main_mask_all_ones=True))
+    assert torch.equal(out, fused.develop_post_geo_fused_ref(planes, params, None))
     with pytest.raises(ValueError, match="no develop kernel"):
-        fused.develop_post_geo_fused(planes.to("meta"), params, None,
-                                     main_mask_all_ones=True)
+        fused.develop_post_geo_fused(planes.to("meta"), params, None)
 
 
 @pytest.mark.parametrize("identity", [False, True])
@@ -316,9 +340,9 @@ def test_twin_oetf_within_pow_form(rng, monkeypatch, identity):
         p.set_vignette(40)
     img = nongray_image(rng, 48, 160).transpose(2, 0, 1).copy()
     img[:, :4, :4] = 0.0
-    flags = dict(main_mask_all_ones=True, default_bright_curves=identity,
-                 default_oklch_curves=identity, identity_oklch=identity)
+    flags = dict(identity_oklch=identity)
     params = pack_params([p], device="cpu")
+    assert fused.skips_oklch(params, identity) == identity
     ours = fused.develop_post_geo_fused(torch.from_numpy(img), params, None, **flags)
     monkeypatch.setattr(fused.ktrig, "srgb_oetf", tcolor.linear_to_srgb)
     pow_form = fused.develop_post_geo_fused(torch.from_numpy(img), params, None,
@@ -356,11 +380,172 @@ def test_kernel_table_layout(m, s):
     plist[-1].set_curve(LIGHTNESS, pts, [32767] * s)
     params = pack_params(plist, extent=(40, 150), device="cpu")
     assert params.breaks.shape[-1] == s
-    slots = fused._slot_table(m, False, True, None)
-    table = fused.pack_table(params, m, s, slots, 7.0, torch.device("cpu"))
+    table = fused.pack_table(params, m, s, params.default_slots, 7.0,
+                             torch.device("cpu"))
     assert table.numel() == 4 + 11 * m + 20 * m * s
     assert table[:4].tolist() == [0.0, 40.0, 150.0, 7.0]
-    assert table[4:4 + m].tolist() == [14.0] * m  # hue|sat|light = 2|4|8
+    # bright|hue|sat|light = 1|2|4|8; the last mask's lightness is edited
+    # but at s = 2, where its two points at 32767 are the default curve
+    last = 15.0 if s == 2 else 7.0
+    assert table[4:4 + m].tolist() == [15.0] * (m - 1) + [last]
     gains = table[4 + m:4 + 4 * m]
     assert torch.equal(gains, params.gains.reshape(-1))
     assert torch.equal(table[-16 * m * s:], params.coeffs.reshape(-1))
+
+
+# -- the editor's launch input against caller-built flags ---------------------
+
+def _caller_built_slots(plist):
+    """The develop launch's slot table and OKLCH skip as the editor worked
+    them out before the table moved into the packed params: all-mask
+    flags from ``default_curve_slots``, merged with the per-mask table of
+    a multi-mask session."""
+    slots = default_curve_slots(plist)
+    db = all(sl[0] for sl in slots)
+    doc = all(sl[1] and sl[2] and sl[3] for sl in slots)
+    m = len(plist)
+    return fused._slot_table(m, db, doc, slots if m > 1 else None), doc
+
+
+def _session_curves(ed, rng, mask_name=None, points=(8, 6, 5, 4)):
+    """Curves as the benchmark's sessions set them: brightness and hue near
+    the diagonal, hue ends pinned, saturation and lightness gains by hue
+    that end where they start."""
+    for slot, n in enumerate(points):
+        xs = np.linspace(0, 65535, n).round().astype(int)
+        xs[1:-1] += rng.integers(-2000, 2001, size=n - 2)
+        if slot in (BRIGHTNESS, HUE):
+            band = 6000 if slot == BRIGHTNESS else 3000
+            ys = np.clip(xs + rng.integers(-band, band + 1, size=n), 0, 65535)
+            if slot == HUE:
+                ys[0], ys[-1] = 0, 65535
+        else:
+            ys = rng.integers(20000, 49000, size=n)
+            ys[-1] = ys[0]
+        ed.set_curve(slot, xs.tolist(), ys.tolist(), mask_name=mask_name)
+
+
+def _spy_launches(monkeypatch):
+    seen = []
+    real = fused.develop_post_geo_fused
+
+    def spy(planes, params, masks, **kw):
+        seen.append((params, masks, kw))
+        return real(planes, params, masks, **kw)
+
+    monkeypatch.setattr(fused, "develop_post_geo_fused", spy)
+    return seen
+
+
+def _move_point(ed, slot, mask_name=None, dy=1500):
+    c = ed.params(mask_name).curves[slot]
+    xs, ys = c.control_x.tolist(), c.control_y.tolist()
+    ys[1] = int(np.clip(ys[1] + dy, 0, 65535))
+    ed.set_curve(slot, xs, ys, mask_name=mask_name)
+
+
+def _maskdrag(ed, rng):
+    h, w = ed.shape
+    for i, name in enumerate(("gradient", "radial", "brush")):
+        logits = np.full((h, w), -1.0, np.float32)
+        logits[i * h // 4:(i + 2) * h // 4, : (w * (i + 1)) // 4] = 1.0
+        ed.add_mask(name, logits)
+    for name in (None, "gradient", "radial", "brush"):
+        _session_curves(ed, rng, name)
+    yield
+    ed.set_tone(exposure=0.4, contrast=12, mask_name="radial")
+    yield
+    _move_point(ed, SATURATION, "gradient")
+    yield
+    ed.set_whitebalance(temperature=20, tint=-8)
+    yield
+    _move_point(ed, BRIGHTNESS, "brush")
+    yield
+    ed.set_vignette(30)
+    yield
+    # Mask edits: a fresh mask keeps its default curves, then goes again.
+    ed.add_mask("fresh", np.ones(ed.shape, np.float32))
+    yield
+    ed.set_tone(exposure=-0.2, mask_name="fresh")
+    yield
+    ed.remove_mask("fresh")
+    yield
+
+
+def _drag(ed, rng):
+    _session_curves(ed, rng)
+    yield
+    ed.set_tone(exposure=0.3, shadow=-12)
+    yield
+    _move_point(ed, HUE)
+    yield
+    _move_point(ed, LIGHTNESS)
+    yield
+    ed.set_vignette(45)
+    yield
+
+
+def _sliders(ed, rng):
+    yield
+    ed.set_tone(exposure=0.6, contrast=15, highlight=-20)
+    yield
+    ed.set_whitebalance(temperature=-10)
+    yield
+    ed.set_vignette(25)
+    yield
+    ed.set_curve(BRIGHTNESS, [0, 30000, 65535], [1500, 33000, 65535])
+    yield
+
+
+@pytest.mark.parametrize("session", ["maskdrag", "drag", "sliders"])
+def test_editor_launch_table_equals_caller_built_flags(rng, monkeypatch, session):
+    """For the benchmark cells' session shapes (M = 4 with 8/6/5/4-point
+    curves, M = 1 with curves, M = 1 sliders only) through tone, curve and
+    mask edits, the editor's develop launch gets the table bytes, the
+    mask-array elision and the OKLCH skip that the caller-built flags gave
+    it."""
+    seen = _spy_launches(monkeypatch)
+    ed = PhotoEditor.from_rgb_f32(nongray_image(rng, 24, 40), device="cpu",
+                                  mid_long_edge=20, low_long_edge=10)
+    steps = {"maskdrag": _maskdrag, "drag": _drag, "sliders": _sliders}[session]
+    cpu = torch.device("cpu")
+    for _ in steps(ed, rng):
+        ed.apply(FULL)
+        params, masks, kw = seen[-1]
+        assert kw == {"identity_oklch": True}
+        plist = [mk.params for mk in ed.masks]
+        m, s = len(plist), params.breaks.shape[-1]
+        flagged, flagged_skip = _caller_built_slots(plist)
+        assert torch.equal(
+            fused.pack_table(params, m, s, params.default_slots, None, cpu),
+            fused.pack_table(params, m, s, flagged, None, cpu))
+        assert fused.skips_oklch(params, kw["identity_oklch"]) == flagged_skip
+        assert (masks is None) == (m == 1)
+    assert len(seen) >= 5
+
+
+def test_single_mask_partial_oklch_defaults_render_as_before(rng):
+    """One mask with a hue curve and default saturation and lightness: the
+    params' table marks those two default where the caller-built all-family
+    flag marked none. Only those slot bits differ, and the render is the
+    same, bit for bit."""
+    p = EditParameters()
+    p.set_tone(exposure=0.3)
+    p.set_curve(HUE, [0, 30000, 65535], [0, 33000, 65535])
+    plist = [p]
+    params = pack_params(plist, device="cpu")
+    flagged, skip = _caller_built_slots(plist)
+    assert params.default_slots == ((True, False, True, True),)
+    assert flagged == [(True, False, False, False)] and not skip
+    cpu = torch.device("cpu")
+    s = params.breaks.shape[-1]
+    new = fused.pack_table(params, 1, s, params.default_slots, None, cpu)
+    old = fused.pack_table(params, 1, s, flagged, None, cpu)
+    assert new[4].item() == 13.0 and old[4].item() == 1.0
+    assert torch.equal(torch.cat([new[:4], new[5:]]), torch.cat([old[:4], old[5:]]))
+    planes = _planes(rng)
+    assert torch.equal(
+        fused.develop_post_geo_fused(planes, params, None, identity_oklch=True),
+        fused.develop_post_geo_fused(
+            planes, dataclasses.replace(params, default_slots=tuple(flagged)),
+            None, identity_oklch=True))

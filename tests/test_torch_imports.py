@@ -83,7 +83,7 @@ from rawphotoforge_tpu_torch.kernels import fused
 r = np.random.default_rng(0)
 params = pack_params([fx.random_params(r, allow_geometry=False)], device="cpu")
 planes = torch.from_numpy(r.random((3, 8, 16)).astype(np.float32))
-out = fused.develop_post_geo_fused(planes, params, None, main_mask_all_ones=True)
+out = fused.develop_post_geo_fused(planes, params, None)
 fx.assert_staircase_explained(out, planes, params, None)
 fx.assert_fuzz_close(out, out)
 fx.png48_bytes(r.integers(0, 65536, (4, 5, 3)).astype(np.uint16),

@@ -21,6 +21,7 @@ from rawphotoforge_tpu_torch.ops import demosaic as dm
 from rawphotoforge_tpu_torch.ops.sharpen import unsharp_mask
 
 from test_develop import assert_close
+from torch_fixtures import no_shortcuts
 from torch_parity import assert_close_across
 
 WB = np.asarray([1.8, 1.0, 1.4], np.float32)
@@ -57,9 +58,14 @@ def _hwc(x):
     return np.asarray(x).transpose(1, 2, 0)
 
 
-def _twin(mosaic, plist, sharpen, masks=None, **kw):
+def _twin(mosaic, plist, sharpen, masks=None, general=False, **kw):
+    """The port's RAW develop on the CPU; ``general`` clears the params'
+    curve shortcuts, so every curve is evaluated."""
+    params = pack_params(plist, device="cpu")
+    if general:
+        params = no_shortcuts(params)
     return rp.raw_develop_fused(
-        torch.from_numpy(mosaic), WB, CAM, pack_params(plist, device="cpu"),
+        torch.from_numpy(mosaic), WB, CAM, params,
         np.float32(sharpen), masks=None if masks is None else torch.from_numpy(masks),
         **kw).numpy()
 
@@ -99,9 +105,10 @@ def test_twin_matches_pallas_raw_kernel(rng, case):
     mosaic = rng.random((h, w), dtype=np.float32)
     plist = [_edit(), _regional()] if regional else [_edit()]
     masks = _masks(h, w) if regional else None
-    kw = dict(pattern=pattern, tile_h=th, tile_w=tw)
-    ours = _twin(mosaic, plist, sharpen, masks, **kw)
-    ref = _pallas(mosaic, plist, sharpen, masks, **kw)
+    ours = _twin(mosaic, plist, sharpen, masks, pattern=pattern)
+    # The tiles are the JAX kernel's; the port's kernel takes none.
+    ref = _pallas(mosaic, plist, sharpen, masks, pattern=pattern, tile_h=th,
+                  tile_w=tw)
     assert ours.shape == ref.shape == (3, h, w)
     assert_close_across(_hwc(ours), _hwc(ref))
 
@@ -124,11 +131,9 @@ def _composed(mosaic, plist, sharpen, pattern, masks=None):
     rgb = dm.develop_raw(torch.from_numpy(mosaic), WB, CAM, pattern=pattern,
                          method=method)
     rgb = unsharp_mask(rgb, sharpen)
-    m = (torch.ones((1,) + mosaic.shape) if masks is None
-         else torch.from_numpy(masks))
     return fused.develop_post_geo_fused(
-        rgb, pack_params(plist, device="cpu"), m,
-        main_mask_all_ones=masks is None).numpy()
+        rgb, pack_params(plist, device="cpu"),
+        None if masks is None else torch.from_numpy(masks)).numpy()
 
 
 @pytest.mark.parametrize("pattern,h,w,sharpen,trim,regional", [
@@ -163,13 +168,22 @@ def test_shortcut_variants_bit_identical(rng, pattern):
     p = EditParameters()
     p.set_tone(exposure=0.6, contrast=20)
     p.set_vignette(30)
-    general = _twin(mosaic, [p], 0.5, pattern=pattern)
-    fast = _twin(mosaic, [p], 0.5, pattern=pattern, default_bright_curves=True,
-                 default_oklch_curves=True)
+    general = _twin(mosaic, [p], 0.5, pattern=pattern, general=True)
+    fast = _twin(mosaic, [p], 0.5, pattern=pattern)
     np.testing.assert_array_equal(general, fast)
-    ident = _twin(mosaic, [p], 0.5, pattern=pattern, default_bright_curves=True,
-                  default_oklch_curves=True, identity_oklch=True)
+    ident = _twin(mosaic, [p], 0.5, pattern=pattern, identity_oklch=True)
+    assert not np.array_equal(ident, general)  # the round trip was skipped
     assert np.abs(ident - general).max() < 3e-3
+    # A regional mask's default slots take their shortcuts too.
+    masks = _masks(h, w)
+    np.testing.assert_array_equal(
+        _twin(mosaic, [p, _regional()], 0.5, masks, pattern=pattern, general=True),
+        _twin(mosaic, [p, _regional()], 0.5, masks, pattern=pattern))
+    # With a real hue curve identity_oklch only permits: the full path runs.
+    p.set_curve(HUE, [0, 30000, 65535], [2000, 33000, 63000])
+    np.testing.assert_array_equal(
+        _twin(mosaic, [p], 0.5, pattern=pattern, identity_oklch=True),
+        _twin(mosaic, [p], 0.5, pattern=pattern, general=True))
 
 
 def test_sharpen_zero_keeps_the_clipped_value(rng):
@@ -185,15 +199,10 @@ def test_sharpen_zero_keeps_the_clipped_value(rng):
 
 def test_argument_checks(rng):
     mosaic = rng.random((48, 384), dtype=np.float32)
-    with pytest.raises(ValueError, match="multiples of 6"):
-        _twin(mosaic, [EditParameters()], 0.0, pattern="XTRANS", tile_h=16,
-              tile_w=128)
-    with pytest.raises(ValueError, match="identity_oklch"):
-        _twin(mosaic, [EditParameters()], 0.0, identity_oklch=True)
-    with pytest.raises(ValueError, match="multiple of 128"):
-        _twin(mosaic, [EditParameters()], 0.0, tile_w=200)
-    with pytest.raises(ValueError, match="tile_h must be even"):
-        _twin(mosaic, [EditParameters()], 0.0, tile_h=15)
+    with pytest.raises(ValueError, match="unknown CFA pattern"):
+        _twin(mosaic, [EditParameters()], 0.0, pattern="RGBG")
+    with pytest.raises(ValueError, match="expected a mosaic"):
+        _twin(mosaic[None], [EditParameters()], 0.0)
     with pytest.raises(ValueError, match="pass masks"):
         _twin(mosaic, [EditParameters(), _regional()], 0.0)
     with pytest.raises(ValueError, match="at least 12x12"):

@@ -340,6 +340,14 @@ def png48_bytes(u16: np.ndarray, ftypes_for=None, interlace: bool = False,
 
 # -- the full-parameter fuzz --------------------------------------------------------
 
+def no_shortcuts(params):
+    """Packed params with their curve shortcut table cleared: the develop
+    kernels then evaluate every curve, the general path a shortcut must
+    equal bit for bit."""
+    return dataclasses.replace(
+        params, default_slots=((False,) * 4,) * params.num_masks)
+
+
 def random_params(r: np.random.Generator, allow_geometry=True):
     """tests/test_fuzz.py's ``_random_params`` on the port's
     EditParameters: the same Generator calls in the same order, so a seed

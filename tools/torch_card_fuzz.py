@@ -10,7 +10,8 @@ its plain torch twin on the same inputs:
  1. the develop kernel (csrc/develop.cu) at 256x512 with M in {1, 2, 3}
     masks against the exact-LUT anchor (ops/develop.develop_post_geo) under
     assert_fuzz_close and assert_staircase_explained;
- 1b. per-mask default-curve slot elision, bit for bit the general kernel;
+ 1b. per-mask default-curve slot elision (the packed params' slot table),
+    bit for bit the general kernel (the same params with the table cleared);
  2. the Bayer RAW kernel (csrc/raw_develop.cu) against the composed path
     (demosaic -> unsharp -> develop kernel);
  3. the X-Trans RAW kernel, the same on the interior (the outer 14 px, as
@@ -67,7 +68,8 @@ from rawphotoforge_tpu_torch.ops import develop as anchor  # noqa: E402
 from rawphotoforge_tpu_torch.ops.sharpen import unsharp_mask  # noqa: E402
 from rawphotoforge_tpu_torch.utils.transfer import fetch_np  # noqa: E402
 from torch_fixtures import (  # noqa: E402
-    assert_fuzz_close, assert_staircase_explained, fuzz_deviation, random_params)
+    assert_fuzz_close, assert_staircase_explained, fuzz_deviation, no_shortcuts,
+    random_params)
 
 H, W = 256, 512          # the develop parts' frame (tools/tpu_fuzz.py)
 RAW_HW = (192, 512)
@@ -111,10 +113,8 @@ def part_fused(dev, n, log):
                for _ in range(seed % 3)])).to(dev)
         params = pack_params([random_params(r, allow_geometry=False)
                               for _ in range(masks.shape[0])], device=dev)
-        ours = fused.develop_post_geo_fused(planes, params, masks,
-                                            main_mask_all_ones=True)
-        twin = fused.develop_post_geo_fused_ref(planes, params, masks,
-                                                main_mask_all_ones=True)
+        ours = fused.develop_post_geo_fused(planes, params, masks)
+        twin = fused.develop_post_geo_fused_ref(planes, params, masks)
         ref = anchor.develop_post_geo(planes, params, masks)
         rec = {"seed": seed, "masks": int(masks.shape[0]),
                "twin_equal": torch.equal(ours, twin), **fuzz_deviation(ours, ref)}
@@ -153,15 +153,12 @@ def part_slots(dev, n, log):
             + [(r.random((H, W)) > 0.5).astype(np.float32)
                for _ in range(m - 1)])).to(dev)
         params = pack_params(edits, device=dev)
-        kw = dict(main_mask_all_ones=True)
-        general = fused.develop_post_geo_fused(planes, params, masks, **kw)
-        elided = fused.develop_post_geo_fused(planes, params, masks, **kw,
-                                              default_curve_slots=slots)
-        twin = fused.develop_post_geo_fused_ref(planes, params, masks, **kw,
-                                                default_curve_slots=slots)
+        general = fused.develop_post_geo_fused(planes, no_shortcuts(params), masks)
+        elided = fused.develop_post_geo_fused(planes, params, masks)
+        twin = fused.develop_post_geo_fused_ref(planes, params, masks)
         n_diff = int((general != elided).sum())
         twin_eq = torch.equal(elided, twin)
-        ok = n_diff == 0 and twin_eq
+        ok = n_diff == 0 and twin_eq and params.default_slots == slots
         n_elided = sum(sum(sl) for sl in slots)
         log(f"slots seed {seed}: {'ok' if ok else 'FAIL'} (M={m}, "
             f"{n_elided}/{4 * m} slots default, diff_px={n_diff}, "
@@ -195,9 +192,7 @@ def _raw_part(dev, n, log, xtrans):
                              method="residual" if xtrans else "malvar")
         if sharpen != 0.0:
             rgb = unsharp_mask(rgb, float(sharpen))
-        ones = torch.ones((1, *hw), dtype=torch.float32, device=dev)
-        composed = fused.develop_post_geo_fused(rgb, params, ones,
-                                                main_mask_all_ones=True)
+        composed = fused.develop_post_geo_fused(rgb, params, None)
         if xtrans:
             t = XTRANS_TRIM
             stats = fuzz_deviation(one_pass[:, t:-t, t:-t], composed[:, t:-t, t:-t])
@@ -245,21 +240,19 @@ def _oklch_part(dev, n, log, tone_curve):
             xs = np.sort(r.choice(65533, size=2, replace=False) + 1)
             p.set_curve(0, [0, int(xs[0]), int(xs[1]), 65535],
                         sorted(int(v) for v in r.integers(0, 65536, size=4)))
-            full_kw = dict(main_mask_all_ones=True)
-            fast_kw = dict(main_mask_all_ones=True, default_oklch_curves=True,
-                           identity_oklch=True)
-        else:
-            full_kw = dict(main_mask_all_ones=True, default_bright_curves=True,
-                           default_oklch_curves=True)
-            fast_kw = dict(full_kw, identity_oklch=True)
         params = pack_params([p], device=dev)
-        full = fused.develop_post_geo_fused(planes, params, None, **full_kw)
-        fast = fused.develop_post_geo_fused(planes, params, None, **fast_kw)
+        # The tone-curve part's reference is the general kernel, the other's
+        # the full OKLCH path with the default-curve shortcuts.
+        full_params = no_shortcuts(params) if tone_curve else params
+        full = fused.develop_post_geo_fused(planes, full_params, None)
+        fast = fused.develop_post_geo_fused(planes, params, None,
+                                            identity_oklch=True)
         twin_eq = (torch.equal(full, fused.develop_post_geo_fused_ref(
-            planes, params, None, **full_kw)) and torch.equal(
-            fast, fused.develop_post_geo_fused_ref(planes, params, None, **fast_kw)))
+            planes, full_params, None)) and torch.equal(
+            fast, fused.develop_post_geo_fused_ref(planes, params, None,
+                                                   identity_oklch=True)))
         mx = float((full - fast).abs().max().item())
-        ok = mx < OKLCH_BOUND and twin_eq
+        ok = mx < OKLCH_BOUND and twin_eq and fused.skips_oklch(params, True)
         name = "tone-curve" if tone_curve else "identity_oklch"
         log(f"{name} seed {seed}: {'ok' if ok else 'FAIL'} (max={mx:.2e}, "
             f"twin_equal={twin_eq})")

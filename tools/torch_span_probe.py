@@ -8,7 +8,8 @@ of ``perfbench/run.py`` (the same set-up, window and check), with three
 readings added from outside the harness: a span log around
 ``PhotoEditor.open`` (the ``open.*`` spans), the work counters
 (``core/params.COUNTS``: curve fits and reuses of a kept fit;
-``engine/editor.COUNTS``, the geometry kernel's ``KERNEL_LAUNCHES``) read
+``engine/editor.COUNTS``, the geometry kernel's ``KERNEL_LAUNCHES``, the
+develop kernel's ``LAUNCHES``) read
 when the window's profiler starts and stops, and the program's
 ``editor.*`` / ``develop.*`` spans taken from that profiler's trace, whose
 device idle gaps it names again by the innermost span at their middle, the
@@ -50,8 +51,9 @@ def _load_run():
 def _counts():
     from rawphotoforge_tpu_torch.core import params
     from rawphotoforge_tpu_torch.engine import editor
+    from rawphotoforge_tpu_torch.kernels import fused
 
-    counts = {**params.COUNTS, **editor.COUNTS}
+    counts = {**params.COUNTS, **editor.COUNTS, "develop_launches": fused.LAUNCHES}
     try:  # the geometry kernel's launches, where the tree has the kernel
         from rawphotoforge_tpu_torch.kernels import geometry
     except ImportError:
@@ -148,6 +150,7 @@ def probe(workload: str, seed: int, seconds: float, device, **run_kwargs) -> dic
                                 if hits is not None and hits + done["curve_fits"]
                                 else None),
         "geometry_passes_per_tick": (done["warps"] + done["unsharps"]) / ticks,
+        "develop_launches_per_tick": done["develop_launches"] / ticks,
         "geometry_launches_per_tick": (done["geometry_sharpen_kernel"] / ticks
                                        if "geometry_sharpen_kernel" in done else None),
         "counts_in_window": done,
